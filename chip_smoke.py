@@ -8,15 +8,24 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 Phases, each failing the run on any error:
   1. environment: torch, CUDA, triton, the card and its power limit;
   2. build of the CUDA kernels from csrc/ (nvcc, sm_90a), with its time;
-  3. the remap kernel against its plain torch version on the card, NC=1
-     and NC=2, f32 and bf16, on small fixtures and at one 1920^2
-     camera's Y and U|V plans from the 4K template;
-  4. a small rig (two fisheyes, 512x256): the port on CUDA in f32
-     against the port on the CPU, and bf16 against f32 on CUDA;
+  3. the remap kernel against its plain torch version on the card:
+     a. NC=1 and NC=2, f32 and bf16, on small fixtures;
+     b. at one 1920^2 camera's Y and U|V plans from the 4K template;
+     c. NC=3 (the rgb remap) on the small fixtures, at one 4K camera's
+        plan and as a single-input launch (the mixed-size shape);
+     d. a frames-axis launch (B=4) against B one-frame launches;
+  4. small rigs (two fisheyes, 512x256): the port on CUDA in f32 against
+     the port on the CPU, and bf16 against f32 on CUDA;
+     b. every Mapper option on both pipelines, FastMapper, and a
+        mixed-size rig, CUDA against CPU;
+     c. the default-path regression of bench.py: the CUDA defaults
+        (yuv420 + bf16) against rgb + f32 on the card;
   5. the main path: 6 x 1920^2 fisheyes -> 3840x1920 equirect,
      yuv420 + bf16 + gains, 24 frame sets from seed 0 on the device;
-     ms/frame, first-call time, frame-0 checksum, peak memory, a kernel
-     launch count, and one torch.profiler pass.
+     ms/frame, first-call time, frame-0 checksum, peak memory, kernel
+     launch counts, and one torch.profiler pass;
+     b. the same rig on the rgb pipeline (blend 128, gains, bf16);
+     c. stitch_batch at B=4 on the yuv420 pipeline against stitch.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -37,6 +46,8 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 CANVAS_W, CANVAS_H = 3840, 1920
 CAM = 1920
 ITERS = 24
+RGB_ITERS = 8
+BATCH = 4
 
 
 def log(msg):
@@ -112,7 +123,7 @@ def _time_kernel(planes, group, dtype, label):
     from octvr_tpu_torch.ops import cuda_remap
     from octvr_tpu_torch.ops.remap import remap_apply_reference
 
-    ms = cuda_ms(lambda: cuda_remap.remap_apply(planes, group, dtype))
+    ms = cuda_ms(lambda: cuda_remap.remap_apply(planes, group, dtype), iters=50, warmup=5)
     plain = cuda_ms(lambda: remap_apply_reference(planes, group, dtype), iters=3, warmup=1)
     log(f"  {label}: kernel {ms:.4f} ms, plain torch {plain:.4f} ms "
         f"({group.starts[-1]} output pixels x {planes.shape[1]} channels)")
@@ -157,6 +168,60 @@ def phase_kernel_4k_camera(mt):
         for dtype in (torch.float32, torch.bfloat16):
             _time_kernel(planes, group, dtype, f"camera 0, NC={nc}, {str(dtype)[6:]}")
     return err
+
+
+def phase_kernel_nc3(mt):
+    """NC=3 against its plain version: f32 within 1e-3, bf16 within 1.0
+    of f32.  Returns the max f32 error and the single-input launch's
+    kernel and plain times (f32 store, the mixed-size launch)."""
+    from octvr_tpu_torch.ops.remap import remap_group, remap_plan
+    from remap_fixtures import IN_H, IN_W, arc_maps, edge_maps
+
+    log("== 3c. NC=3 (rgb) remap kernel vs plain version")
+    rng = np.random.default_rng(13)
+    err = 0.0
+    for name, maps in (("arc", arc_maps(64, 256)), ("edge", edge_maps())):
+        plans = [remap_plan(*maps, IN_H, IN_W),
+                 remap_plan(*arc_maps(64, 256)[::-1], IN_H, IN_W)]
+        planes = torch.from_numpy(
+            rng.integers(0, 256, (2, 3, IN_H, IN_W), dtype=np.uint8)
+        ).cuda()
+        err = max(err, _check_kernel(planes, remap_group(plans, "cuda"), f"{name} maps, NC=3"))
+    inp = mt.inputs[0]
+    group = remap_group([remap_plan(inp.map1, inp.map2, CAM, CAM)], "cuda")
+    planes = torch.from_numpy(rng.integers(0, 256, (1, 3, CAM, CAM), dtype=np.uint8)).cuda()
+    err = max(err, _check_kernel(planes, group, f"camera 0 single-input launch, NC=3, ROI {inp.map1.shape}"))
+    ms, plain = _time_kernel(planes, group, torch.float32, "camera 0 single-input launch, NC=3, f32")
+    _time_kernel(planes, group, torch.bfloat16, "camera 0 single-input launch, NC=3, bf16")
+    return err, ms, plain
+
+
+def phase_frames_axis():
+    """A frames-axis launch over B frames against B one-frame launches:
+    bit-identical, NC=1 and NC=2 (the yuv420 planes) and NC=3."""
+    from octvr_tpu_torch.ops import cuda_remap
+    from octvr_tpu_torch.ops.remap import remap_group, remap_plan
+    from remap_fixtures import IN_H, IN_W, arc_maps, edge_maps
+
+    log(f"== 3d. frames-axis launch (B={BATCH}) vs {BATCH} one-frame launches")
+    group = remap_group(
+        [remap_plan(*arc_maps(64, 256), IN_H, IN_W), remap_plan(*edge_maps(), IN_H, IN_W)], "cuda"
+    )
+    rng = np.random.default_rng(17)
+    for nc in (1, 2, 3):
+        planes = torch.from_numpy(
+            rng.integers(0, 256, (BATCH, 2, nc, IN_H, IN_W), dtype=np.uint8)
+        ).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            got = cuda_remap.remap_apply_frames(planes, group, dtype)
+            same = all(
+                torch.equal(g[b], one)
+                for b in range(BATCH)
+                for g, one in zip(got, cuda_remap.remap_apply(planes[b], group, dtype))
+            )
+            log(f"  NC={nc}, {str(dtype)[6:]}: bit-identical {same}")
+            if not same:
+                raise AssertionError(f"frames-axis launch differs from one-frame launches, NC={nc}")
 
 
 def _in_gamut_frames(rng, n, size, gains):
@@ -212,6 +277,150 @@ def phase_small_rig():
         raise AssertionError("small-rig parity failed")
 
 
+def _nv12(buf):
+    h, w = buf.shape[0] * 2 // 3, buf.shape[1]
+    u, v = buf[h:, : w // 2], buf[h:, w // 2 :]
+    return np.concatenate([buf[:h], np.stack([u, v], -1).reshape(h // 2, w)])
+
+
+def _cuda_vs_cpu(label, make, frames):
+    """Stitch ``frames`` with make("cpu") and make("cuda"); fails unless Y
+    and UV mean abs err < 0.2 and gains within 1e-3.  Returns the CUDA
+    mapper and its remap launch counts of that one stitch."""
+    from octvr_tpu_torch.ops import cuda_remap
+
+    out_cpu, g_cpu = make("cpu").stitch(frames)
+    m = make("cuda")
+    cuda_remap.reset_counts()
+    out, g = m.stitch(frames)
+    torch.cuda.synchronize()
+    counts = dict(cuda_remap.COUNTS)
+    h = out.shape[0] * 2 // 3
+    d = (out.cpu().float() - out_cpu.float()).abs()
+    y_err, uv_err = d[:h].mean().item(), d[h:].mean().item()
+    g_err = (g.cpu() - g_cpu).abs().max().item()
+    log(f"  {label:34s} {m.plan.pipeline:6s} out {tuple(out.shape)}: Y {y_err:.4f}, UV {uv_err:.4f} "
+        f"(bar < 0.2), gains {g_err:.3g} (bar < 1e-3), launches {counts}")
+    if not (y_err < 0.2 and uv_err < 0.2 and g_err < 1e-3):
+        raise AssertionError(f"CUDA vs CPU parity failed: {label}, {m.plan.pipeline}")
+    return m, counts
+
+
+def phase_small_rig_options():
+    """Every option on both pipelines, FastMapper and a mixed-size rig:
+    the port on CUDA in f32 against the port on the CPU.  Returns the
+    NC=3 launches of the mixed-size rgb stitch (single-input groups) and
+    the kernel's max f32 error against its plain version at them."""
+    import dataclasses
+
+    from octvr_tpu.template import compile_rig
+    from octvr_tpu_torch.ops import cuda_remap
+    from octvr_tpu_torch.ops.remap import remap_apply_reference
+    from octvr_tpu_torch.stitch import FastMapper, Mapper
+    from rigs import two_fisheye_rig
+
+    log("== 4b. small rig, every option on both pipelines: CUDA f32 vs CPU f32")
+    rig = two_fisheye_rig()
+    mt = compile_rig(rig, 512, 256)
+    mt.create_masks()
+    sizes = [(s["options"]["height"], s["options"]["width"]) for s in rig["inputs"]]
+    frames = _in_gamut_frames(np.random.default_rng(5), 2, sizes[0][0], [1.15, 0.85])
+    mt_ov = dataclasses.replace(mt, overlay_inputs=[mt.inputs[0]])
+    ov = _in_gamut_frames(np.random.default_rng(6), 1, 600, [1.0])
+    options = (
+        ("multiband + gains", {}),
+        ("feather", {"blend": -8}),
+        ("no blend", {"blend": 0}),
+        ("blocks gains", {"enable_gain": "blocks"}),
+        ("scale_output=(256, 128)", {"scale_output": (256, 128)}),
+        ("nv12", {"frame_format": "nv12"}),
+    )
+    for pipeline in ("rgb", "yuv420"):
+        base = dict(blend=16, enable_gain=True, pipeline=pipeline, blend_dtype="float32")
+        for label, kw in options:
+            fs = [_nv12(f) for f in frames] if kw.get("frame_format") == "nv12" else frames
+            _cuda_vs_cpu(label, lambda d, kw=kw: Mapper(mt, sizes, device=d, **{**base, **kw}), fs)
+        _cuda_vs_cpu(
+            "overlay input (600^2, own group)",
+            lambda d: Mapper(mt_ov, sizes + [(600, 600)], device=d, **base),
+            frames + ov,
+        )
+        _cuda_vs_cpu(
+            "FastMapper (nv12, feather 8)",
+            lambda d: FastMapper(mt, sizes, device=d, pipeline=pipeline),
+            [_nv12(f) for f in frames],
+        )
+
+    log("== 4b. mixed sizes: 1200^2 + 1000^2 fisheyes -> 512x256 (tests/test_yuv420_product.py)")
+    mrig = two_fisheye_rig()
+    mrig["inputs"][1]["options"]["width"] = mrig["inputs"][1]["options"]["height"] = 1000
+    mmt = compile_rig(mrig, 512, 256)
+    mmt.create_masks()
+    msizes = [(s["options"]["height"], s["options"]["width"]) for s in mrig["inputs"]]
+    rng = np.random.default_rng(8)
+    mframes = [_in_gamut_frames(rng, 1, h, [g])[0] for (h, _), g in zip(msizes, (1.15, 0.85))]
+    kw = dict(blend=16, enable_gain=True, blend_dtype="float32")
+    _cuda_vs_cpu("mixed sizes", lambda d: Mapper(mmt, msizes, device=d, pipeline="yuv420", **kw), mframes)
+    m, counts = _cuda_vs_cpu(
+        "mixed sizes", lambda d: Mapper(mmt, msizes, device=d, pipeline="rgb", **kw), mframes
+    )
+    if counts != {"nc3_f32": 2}:
+        raise AssertionError(f"mixed-size rgb stitch: want 2 single-input NC=3 launches, got {counts}")
+    # kernel 4 at this path's own launches: each single-input group
+    planes = m._prep_rgb(m._frames_to_device(mframes, batched=False))
+    err = 0.0
+    for idxs, g in zip(m.plan.group_idx, m.plan.remap_groups):
+        stack = torch.stack([planes[i] for i in idxs])
+        k = cuda_remap.remap_apply(stack, g, torch.float32)
+        r = remap_apply_reference(stack, g, torch.float32)
+        err = max(err, max((a - b).abs().max().item() for a, b in zip(k, r)))
+    log(f"  mixed-size single-input NC=3 launches {m.plan.group_idx}, kernel vs plain f32: "
+        f"max abs err {err:.3g} (bar < 1e-3)")
+    if not err < 1e-3:
+        raise AssertionError("NC=3 kernel disagrees at the mixed-size launches")
+    return counts["nc3_f32"], err
+
+
+def phase_default_path():
+    """bench.py::default_path_regression on the card: the port's CUDA
+    defaults (pipeline auto -> yuv420, blend_dtype -> bfloat16) against
+    pipeline="rgb", blend_dtype="float32", on bench's 256x128 two 512^2
+    lens rig with in-gamut frames."""
+    import math
+
+    from octvr_tpu.template import compile_rig
+    from octvr_tpu_torch.stitch import Mapper
+
+    log("== 4c. default-path regression (bench.py:114-205): CUDA defaults vs rgb + f32")
+    lens = {"width": 512, "height": 512, "hfov": math.pi * 1.15, "center_dx": 0.0,
+            "center_dy": 0.0, "radial": [0.0, 0.0, 0.0]}
+    rig = {
+        "output": {"type": "equirectangular", "options": {}},
+        "inputs": [
+            {"type": "fullframe_fisheye", "options": dict(lens)},
+            {"type": "fullframe_fisheye",
+             "options": {**lens, "rotation": {"roll": 0.0, "yaw": math.pi, "pitch": 0.0}}},
+        ],
+    }
+    mt = compile_rig(rig, 256, 128)
+    mt.create_masks()
+    sizes = [(512, 512)] * 2
+    m_def = Mapper(mt, sizes, blend=16, device="cuda")
+    if m_def.plan.pipeline != "yuv420" or m_def.plan.blender.compute_dtype != "bfloat16":
+        raise AssertionError(f"CUDA defaults are {m_def.plan.pipeline}, {m_def.plan.blender.compute_dtype}")
+    m_ref = Mapper(mt, sizes, blend=16, pipeline="rgb", blend_dtype="float32", device="cuda")
+    frames = _in_gamut_frames(np.random.default_rng(3), 2, 512, [1.0, 1.0])
+    out_d, g_d = m_def.stitch(frames)
+    out_r, g_r = m_ref.stitch(frames)
+    y_err = (out_d[:128].float() - out_r[:128].float()).abs().mean().item()
+    g_d, g_r = g_d.cpu().numpy(), g_r.cpu().numpy()
+    log(f"  Y mean abs err {y_err:.4f} (bar < 1.5); gains {g_d.tolist()} vs {g_r.tolist()} "
+        f"(rtol 0.05, atol 0.01)")
+    if not y_err < 1.5:
+        raise AssertionError(f"default-path regression: Y mean err {y_err:.3f}")
+    np.testing.assert_allclose(g_d, g_r, rtol=0.05, atol=0.01)
+
+
 def phase_main_path(mt, t_template):
     from octvr_tpu_torch.ops import cuda_remap
     from octvr_tpu_torch.stitch import Mapper
@@ -235,8 +444,8 @@ def phase_main_path(mt, t_template):
     ]
     torch.cuda.synchronize()
 
-    # the main path's launch count: reset just before, read just after
-    cuda_remap.LAUNCHES = 0
+    # the main path's launch counts: reset just before, read just after
+    cuda_remap.reset_counts()
     t0 = time.time()
     out, gains = mapper.stitch(frame_sets[0])
     checksum = int(out[::101, ::103].to(torch.int64).sum().item())
@@ -250,6 +459,7 @@ def phase_main_path(mt, t_template):
     torch.cuda.synchronize()
     ms_frame = (time.time() - t0) / ITERS * 1e3
     launches = cuda_remap.LAUNCHES
+    counts = dict(cuda_remap.COUNTS)
     peak = torch.cuda.max_memory_allocated()
     log(f"  first call {t_first:.3f} s")
     log(f"  output checksum (frame 0): {checksum}")
@@ -257,9 +467,9 @@ def phase_main_path(mt, t_template):
         f"({1e3 / ms_frame:.2f} frames/s), synchronised; the host enqueued "
         f"them at {ms_enqueue:.3f} ms/frame")
     log(f"  peak device memory in the steady loop {peak / 2**30:.3f} GiB")
-    log(f"  remap kernel launches: {launches} over {ITERS + 1} frames")
-    if launches != 2 * (ITERS + 1):
-        raise AssertionError(f"expected {2 * (ITERS + 1)} remap launches, got {launches}")
+    log(f"  remap kernel launches: {launches} over {ITERS + 1} frames: {counts}")
+    if counts != {"nc1_bf16": ITERS + 1, "nc2_bf16": ITERS + 1}:
+        raise AssertionError(f"expected {ITERS + 1} launches of each of nc1_bf16 and nc2_bf16")
     if out.dtype != torch.uint8 or tuple(out.shape) != (CANVAS_H * 3 // 2, CANVAS_W):
         raise AssertionError(f"bad output {out.dtype} {tuple(out.shape)}")
     if not torch.isfinite(gains).all():
@@ -271,7 +481,7 @@ def phase_main_path(mt, t_template):
 
     # bf16 main path against the same path in f32 on the card
     out32, _ = Mapper(mt, sizes, blend=128, enable_gain=True, blend_dtype="float32",
-                      device="cuda").stitch(frame_sets[0])
+                      pipeline="yuv420", device="cuda").stitch(frame_sets[0])
     y_err = (out32[:CANVAS_H].float() - y.float()).abs().mean().item()
     log(f"  bf16 vs f32 main path, frame 0: Y mean abs err {y_err:.4f} (bar < 1.5)")
     if not y_err < 1.5:
@@ -282,9 +492,9 @@ def phase_main_path(mt, t_template):
     from octvr_tpu_torch.ops.remap import remap_apply_reference
 
     ys, uvs = mapper._prep_yuv(frame_sets[0])
-    planes_y = torch.stack([t[None] for t in ys])
+    planes_y = torch.stack(ys)
     planes_uv = torch.stack(uvs)
-    gy, guv = mapper.plan.remap_y_groups[0], mapper.plan.remap_uv_groups[0]
+    gy, guv = mapper.plan.remap_groups[0], mapper.plan.remap_uv_groups[0]
     err = 0.0
     for planes, g, nc in ((planes_y, gy, 1), (planes_uv, guv, 2)):
         k = cuda_remap.remap_apply(planes, g, torch.float32)
@@ -302,11 +512,141 @@ def phase_main_path(mt, t_template):
 
     profile(mapper, frame_sets, ms_frame)
     return {
-        "launches": launches,
-        "ms": ms_y + ms_uv,
-        "plain_ms": plain_y + plain_uv,
-        "err": err,
+        "mapper": mapper,
+        "frame_sets": frame_sets,
+        "ms_frame": ms_frame,
+        "nc1": {"launches": counts["nc1_bf16"], "ms": ms_y, "plain_ms": plain_y, "err": err},
+        "nc2": {"launches": counts["nc2_bf16"], "ms": ms_uv, "plain_ms": plain_uv, "err": err},
     }
+
+
+def phase_rgb_path(mt, frame_sets):
+    """The 4K rig on the rgb pipeline: one NC=3 launch per frame."""
+    from octvr_tpu_torch.ops import cuda_remap
+    from octvr_tpu_torch.ops.remap import remap_apply_reference
+    from octvr_tpu_torch.stitch import Mapper
+
+    log("== 5b. 4K rgb path: 6 x 1920^2 fisheyes -> 3840x1920, rgb + bf16 + gains, blend 128")
+    t0 = time.time()
+    mapper = Mapper(mt, [(CAM, CAM)] * 6, blend=128, enable_gain=True, pipeline="rgb", device="cuda")
+    torch.cuda.synchronize()
+    log(f"  plan built and moved to the card in {time.time() - t0:.1f} s "
+        f"(blend_dtype={mapper.plan.blender.compute_dtype})")
+    sets = frame_sets[:RGB_ITERS]
+    cuda_remap.reset_counts()
+    t0 = time.time()
+    out, gains = mapper.stitch(sets[0])
+    checksum = int(out[::101, ::103].to(torch.int64).sum().item())
+    t_first = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for fs in sets:
+        mapper.stitch(fs)
+    ms_enqueue = (time.time() - t0) / len(sets) * 1e3
+    torch.cuda.synchronize()
+    ms_frame = (time.time() - t0) / len(sets) * 1e3
+    counts = dict(cuda_remap.COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  first call {t_first:.3f} s")
+    log(f"  output checksum (frame 0): {checksum}")
+    log(f"  steady {ms_frame:.3f} ms/frame over {len(sets)} frames "
+        f"({1e3 / ms_frame:.2f} frames/s), synchronised; the host enqueued "
+        f"them at {ms_enqueue:.3f} ms/frame")
+    log(f"  peak device memory in the steady loop {peak / 2**30:.3f} GiB")
+    log(f"  remap kernel launches over {len(sets) + 1} frames: {counts}")
+    if counts != {"nc3_bf16": len(sets) + 1}:
+        raise AssertionError(f"expected one NC=3 launch per frame, got {counts}")
+    if out.dtype != torch.uint8 or tuple(out.shape) != (CANVAS_H * 3 // 2, CANVAS_W):
+        raise AssertionError(f"bad output {out.dtype} {tuple(out.shape)}")
+    if not torch.isfinite(gains).all() or int(out[:CANVAS_H].max()) == int(out[:CANVAS_H].min()):
+        raise AssertionError("non-finite gains or a constant Y plane")
+    log(f"  gains {[round(g, 5) for g in gains.tolist()]}")
+
+    planes = torch.stack(mapper._prep_rgb(sets[0]))
+    group = mapper.plan.remap_groups[0]
+    k = cuda_remap.remap_apply(planes, group, torch.float32)
+    r = remap_apply_reference(planes, group, torch.float32)
+    err = max((a - b).abs().max().item() for a, b in zip(k, r))
+    log(f"  6-camera NC=3 launch, kernel vs plain f32: max abs err {err:.3g}")
+    if not err < 1e-3:
+        raise AssertionError("NC=3 kernel disagrees at the rgb path's shapes")
+    ms, plain = _time_kernel(planes, group, torch.bfloat16, "6-camera NC=3 launch, bf16")
+    del planes, k, r
+    profile(mapper, sets, ms_frame)
+    return {"launches": counts["nc3_bf16"], "ms": ms, "plain_ms": plain, "err": err}
+
+
+def phase_stitch_batch(mapper, frame_sets, ms_stitch):
+    """stitch_batch at B frames on the phase-5 mapper: two frames-axis
+    launches per batch, each frame's output equal to stitch's."""
+    from octvr_tpu_torch.ops import cuda_remap
+    from octvr_tpu_torch.ops.remap import remap_apply_frames_reference
+
+    nb = 3
+    log(f"== 5c. stitch_batch at 4K, yuv420, B={BATCH}, {nb} batches (phase 5 stitch: "
+        f"{ms_stitch:.3f} ms/frame)")
+    sets = frame_sets[: nb * BATCH]
+    batches = [
+        [torch.stack(fs) for fs in zip(*sets[k * BATCH : (k + 1) * BATCH])] for k in range(nb)
+    ]
+    mapper.stitch_batch(batches[0])  # warm-up
+    torch.cuda.synchronize()
+
+    def run_batches():
+        t0 = time.time()
+        res = [mapper.stitch_batch(b) for b in batches]
+        torch.cuda.synchronize()
+        return res, (time.time() - t0) / len(sets) * 1e3
+
+    def run_stitch():
+        t0 = time.time()
+        res = [mapper.stitch(fs) for fs in sets]
+        torch.cuda.synchronize()
+        return res, (time.time() - t0) / len(sets) * 1e3
+
+    ref, ms_a = run_stitch()
+    cuda_remap.reset_counts()
+    res, ms_b = run_batches()
+    counts = dict(cuda_remap.COUNTS)
+    _, ms_c = run_batches()
+    _, ms_d = run_stitch()
+    log(f"  ms/frame in turns: stitch {ms_a:.3f}, stitch_batch {ms_b:.3f}, "
+        f"stitch_batch {ms_c:.3f}, stitch {ms_d:.3f}")
+    log(f"  remap launches over {nb} batches: {counts}")
+    if counts != {"frames_nc1_bf16": nb, "frames_nc2_bf16": nb}:
+        raise AssertionError(f"expected two frames-axis launches per batch, got {counts}")
+    g_err = 0.0
+    for k, (out, gains) in enumerate(res):
+        for b in range(BATCH):
+            o, g = ref[k * BATCH + b]
+            if not torch.equal(out[b], o):
+                raise AssertionError(f"stitch_batch frame {k * BATCH + b} differs from stitch")
+            g_err = max(g_err, (gains[b] - g).abs().max().item())
+    log(f"  every frame equal to stitch's; gains max err {g_err:.3g} (bar 1e-6)")
+    if not g_err <= 1e-6:
+        raise AssertionError("stitch_batch gains differ from stitch's")
+
+    # the frames-axis launches against their plain version, at B frames
+    preps = [mapper._prep_yuv(fs) for fs in sets[:BATCH]]
+    err, ms, plain = 0.0, 0.0, 0.0
+    for k, group in ((0, mapper.plan.remap_groups[0]), (1, mapper.plan.remap_uv_groups[0])):
+        planes = torch.stack([torch.stack(p[k]) for p in preps])
+        got = cuda_remap.remap_apply_frames(planes, group, torch.float32)
+        want = remap_apply_frames_reference(planes, group, torch.float32)
+        err = max(err, max((a - b).abs().max().item() for a, b in zip(got, want)))
+        ms += cuda_ms(
+            lambda: cuda_remap.remap_apply_frames(planes, group, torch.bfloat16), iters=20, warmup=2
+        )
+        plain += cuda_ms(
+            lambda: remap_apply_frames_reference(planes, group, torch.bfloat16), iters=2, warmup=1
+        )
+    log(f"  frames-axis launches (Y + U|V, B={BATCH}), kernel vs plain f32: max abs err {err:.3g}; "
+        f"bf16 kernel {ms:.4f} ms, plain torch {plain:.4f} ms")
+    if not err < 1e-3:
+        raise AssertionError("frames-axis kernel disagrees with its plain version")
+    return {"launches": counts["frames_nc1_bf16"] + counts["frames_nc2_bf16"],
+            "ms": ms, "plain_ms": plain, "err": err}
 
 
 _KERNEL_CLASSES = (
@@ -356,6 +696,7 @@ def profile(mapper, frame_sets, ms_frame):
 
 
 def main():
+    t_start = time.time()
     smi = phase_env()
     phase_build()
     err_small = phase_kernel_small()
@@ -368,21 +709,39 @@ def main():
     mt.create_masks()
     t_template = time.time() - t0
     err_cam = phase_kernel_4k_camera(mt)
+    err_nc3, ms_single, plain_single = phase_kernel_nc3(mt)
+    phase_frames_axis()
     phase_small_rig()
+    mixed_launches, err_mixed = phase_small_rig_options()
+    phase_default_path()
     main_path = phase_main_path(mt, t_template)
+    rgb = phase_rgb_path(mt, main_path["frame_sets"])
+    batch = phase_stitch_batch(main_path["mapper"], main_path["frame_sets"], main_path["ms_frame"])
 
     log("== summary")
+    log(f"total run time {time.time() - t_start:.1f} s")
     log(f"card: {smi}")
+    src = "octvr_tpu_torch/csrc/remap.cu"
+    pr = "octvr_tpu/ops/pallas_remap.py"
+    rows = [
+        ("remap NC=1 (yuv420 Y), kernel 1", f"{pr}:661", main_path["nc1"], max(err_small, err_cam)),
+        ("remap NC=2 (yuv420 U|V), kernel 2", f"{pr}:661", main_path["nc2"], max(err_small, err_cam)),
+        ("remap NC=3 (rgb, equal sizes), kernel 3", f"{pr}:661", rgb, err_nc3),
+        ("remap NC=3 single-input launch (rgb, mixed sizes), kernel 4", f"{pr}:352",
+         {"launches": mixed_launches, "ms": ms_single, "plain_ms": plain_single, "err": err_nc3},
+         err_mixed),
+        ("remap frames axis (stitch_batch), kernel 5", f"{pr}:1242", batch, 0.0),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "remap (yuv420 Y NC=1 + U|V NC=2)",
+        "name": name,
         "route": "cuda",
-        "source": "octvr_tpu_torch/csrc/remap.cu",
-        "replaces": "octvr_tpu/ops/pallas_remap.py:661",
-        "launches": main_path["launches"],
-        "max_abs_err": max(err_small, err_cam, main_path["err"]),
-        "ms": main_path["ms"],
-        "plain_ms": main_path["plain_ms"],
-    }]}))
+        "source": src,
+        "replaces": replaces,
+        "launches": r["launches"],
+        "max_abs_err": max(r["err"], extra),
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+    } for name, replaces, r, extra in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,15 @@
-// Bilinear remap of the yuv420 stitch path, for Hopper (sm_90a).
+// Bilinear remap of the stitch paths, for Hopper (sm_90a).
 //
-// Replaces: octvr_tpu/ops/pallas_remap.py::_kernel_grouped, launched by
-// pallas_remap_apply_batched with nc=1, paired=True (the Y remap) and
-// nc=2, paired=True (the U|V remap at half resolution).
+// Replaces, in octvr_tpu/ops/pallas_remap.py:
+//   - _kernel_grouped, launched by pallas_remap_apply_batched with
+//     nc=1, paired=True (the yuv420 Y remap), nc=2, paired=True (its
+//     U|V remap at half resolution) and nc=3 (the rgb remap of an
+//     equal-size camera group): NC = 1, 2, 3 here;
+//   - _kernel, launched by pallas_remap_apply (the rgb remap of one
+//     input, used for mixed camera sizes): the NC=3 kernel launched on a
+//     size group of one input;
+//   - the frames_axis variant of pallas_remap_apply_batched (B frames
+//     per launch, behind Mapper.stitch_batch): blockIdx.z is the frame.
 //
 // Contract (octvr_tpu/ops/remap.py::remap_plan, f64 on the host):
 // px = m*W - 0.5, x0 = clip(floor(px), 0, W-1), x1 = min(x0+1, W-1),
@@ -25,10 +32,16 @@
 // gather are left for later.
 //
 // Layout: a size group of N inputs shares one source size.  src is
-// uint8 [N, NC, H, W].  Input i owns plan entries [off[i], off[i+1]),
-// its ROI pixels in row-major order, and the output block
-// out[NC*off[i] : NC*off[i+1]], laid out [NC, rh, rw].  blockIdx.y picks
-// the input, blockIdx.x * blockDim.x + threadIdx.x the pixel.
+// uint8 [B, N, NC, H, W] (B frames; B = 1 outside stitch_batch), planar,
+// so the rgb source is the JAX pack_rgb quantization without its int32
+// packing, which exists only for the TPU's gather.  Input i owns plan
+// entries [off[i], off[i+1]), its ROI pixels in row-major order, and in
+// each frame the output block out[NC*off[i] : NC*off[i+1]], laid out
+// [NC, rh, rw]; frame b's output starts at b * NC * total.  blockIdx.z
+// picks the frame, blockIdx.y the input, blockIdx.x * blockDim.x +
+// threadIdx.x the pixel.  The plan is the same for every frame, so a
+// frames launch reads it once from device memory and B times from L2 at
+// best; source and output offsets are 64-bit (B x 16.8 M pixels at 4K).
 
 #include <cstdint>
 
@@ -50,14 +63,16 @@ __global__ void __launch_bounds__(kThreads) remap_kernel(
     const uint8_t* __restrict__ src, const int32_t* __restrict__ x0s,
     const int32_t* __restrict__ y0s, const float* __restrict__ fxs,
     const float* __restrict__ fys, const int64_t* __restrict__ offsets,
-    OutT* __restrict__ out, int H, int W) {
+    OutT* __restrict__ out, int H, int W, long long total) {
   const int i = blockIdx.y;
+  const int64_t f = blockIdx.z;
   const int64_t start = offsets[i];
   const int64_t count = offsets[i + 1] - start;
   const int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (p >= count) return;
   const int64_t q = start + p;
-  OutT* o = out + NC * start + p;
+  const int64_t plane = (int64_t)H * W;
+  OutT* o = out + f * NC * (int64_t)total + NC * start + p;
 
   const int x0 = x0s[q];
   if (x0 < 0) {
@@ -75,8 +90,7 @@ __global__ void __launch_bounds__(kThreads) remap_kernel(
   const float w01 = fx * (1.0f - fy);
   const float w10 = (1.0f - fx) * fy;
   const float w11 = fx * fy;
-  const int64_t plane = (int64_t)H * W;
-  const uint8_t* s = src + (int64_t)i * NC * plane;
+  const uint8_t* s = src + (f * gridDim.y + i) * NC * plane;
   const int64_t r0 = (int64_t)y0 * W;
   const int64_t r1 = (int64_t)y1 * W;
 #pragma unroll
@@ -93,18 +107,20 @@ __global__ void __launch_bounds__(kThreads) remap_kernel(
 
 template <int NC, typename OutT>
 int launch(const void* src, const void* x0, const void* y0, const void* fx,
-           const void* fy, const void* offsets, void* out, int n_inputs,
-           long long max_count, int H, int W, void* stream) {
-  if (n_inputs <= 0 || n_inputs > 65535 || max_count <= 0 || H <= 0 ||
+           const void* fy, const void* offsets, void* out, int n_frames,
+           int n_inputs, long long max_count, long long total, int H, int W,
+           void* stream) {
+  if (n_frames <= 0 || n_frames > 65535 || n_inputs <= 0 ||
+      n_inputs > 65535 || max_count <= 0 || total < max_count || H <= 0 ||
       W <= 0)
     return (int)cudaErrorInvalidValue;
   const long long blocks = (max_count + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks, (unsigned)n_inputs);
+  const dim3 grid((unsigned)blocks, (unsigned)n_inputs, (unsigned)n_frames);
   remap_kernel<NC, OutT><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)src, (const int32_t*)x0, (const int32_t*)y0,
       (const float*)fx, (const float*)fy, (const int64_t*)offsets,
-      (OutT*)out, H, W);
+      (OutT*)out, H, W, total);
   return (int)cudaGetLastError();
 }
 
@@ -113,16 +129,19 @@ int launch(const void* src, const void* x0, const void* y0, const void* fx,
 // Plain C entry points, one per instantiation.  Every pointer is a
 // device pointer; stream is a cudaStream_t.  Return: cudaGetLastError()
 // after the launch (0 = launched).
-#define OCTVR_REMAP_ENTRY(NAME, NC, T)                                     \
-  extern "C" int NAME(const void* src, const void* x0, const void* y0,     \
-                      const void* fx, const void* fy, const void* offsets, \
-                      void* out, int n_inputs, long long max_count, int H, \
-                      int W, void* stream) {                               \
-    return launch<NC, T>(src, x0, y0, fx, fy, offsets, out, n_inputs,      \
-                         max_count, H, W, stream);                         \
+#define OCTVR_REMAP_ENTRY(NAME, NC, T)                                      \
+  extern "C" int NAME(const void* src, const void* x0, const void* y0,      \
+                      const void* fx, const void* fy, const void* offsets,  \
+                      void* out, int n_frames, int n_inputs,                \
+                      long long max_count, long long total, int H, int W,   \
+                      void* stream) {                                       \
+    return launch<NC, T>(src, x0, y0, fx, fy, offsets, out, n_frames,       \
+                         n_inputs, max_count, total, H, W, stream);         \
   }
 
 OCTVR_REMAP_ENTRY(octvr_remap_nc1_f32, 1, float)
 OCTVR_REMAP_ENTRY(octvr_remap_nc1_bf16, 1, __nv_bfloat16)
 OCTVR_REMAP_ENTRY(octvr_remap_nc2_f32, 2, float)
 OCTVR_REMAP_ENTRY(octvr_remap_nc2_bf16, 2, __nv_bfloat16)
+OCTVR_REMAP_ENTRY(octvr_remap_nc3_f32, 3, float)
+OCTVR_REMAP_ENTRY(octvr_remap_nc3_bf16, 3, __nv_bfloat16)

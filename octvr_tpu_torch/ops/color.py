@@ -1,13 +1,30 @@
-"""Packed YUV420P split and merge (octvr_tpu/ops/color.py).
+"""Packed YUV420P / NV12 split and merge, and the planar RGB conversions
+of the rgb pipeline (octvr_tpu/ops/color.py).
 
 Frame layout (mapper.hpp:75-83 of the reference): one [H*3/2, W] uint8
 buffer; Y is the top HxW, U is rows [H, H*3/2) cols [0, W/2), V is rows
-[H, H*3/2) cols [W/2, W).
+[H, H*3/2) cols [W/2, W).  NV12 keeps Y on top and interleaves U and V
+below it (UVUV rows, mapper_fast.cpp:153-176).
+
+YUV matrices: full-range BT.601 (JPEG), the JAX package's f32
+expressions term for term, so values that round at .5 fall the same
+way.  The chroma up- and down-sampling is ``repeat_interleave`` and
+strided adds where the JAX package uses its up_cols/down_cols matmuls:
+both are exact in f32 (one non-zero term, or two halves, per output).
 """
 
 import torch
 
-__all__ = ["merge_yuv420p", "split_yuv420p"]
+__all__ = [
+    "merge_nv12",
+    "merge_yuv420p",
+    "planes_to_rgb_planar",
+    "rgb_planar_to_planes",
+    "rgb_planar_to_yuv420p",
+    "split_nv12",
+    "split_yuv420p",
+    "yuv420p_to_rgb_planar",
+]
 
 
 def split_yuv420p(buf):
@@ -19,3 +36,63 @@ def split_yuv420p(buf):
 
 def merge_yuv420p(y, u, v):
     return torch.cat([y, torch.cat([u, v], dim=1)], dim=0)
+
+
+def split_nv12(buf):
+    """NV12 [H*3/2, W] -> (Y [H,W], U [H/2,W/2], V [H/2,W/2]) views."""
+    h = buf.shape[0] * 2 // 3
+    uv = buf[h:].reshape(h // 2, -1, 2)
+    return buf[:h], uv[..., 0], uv[..., 1]
+
+
+def merge_nv12(y, u, v):
+    h, w = y.shape
+    return torch.cat([y, torch.stack([u, v], dim=-1).reshape(h // 2, w)], dim=0)
+
+
+def _up2(c):
+    """Nearest 2x chroma upsample [h, w] -> [2h, 2w]."""
+    return c.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+
+
+def planes_to_rgb_planar(y, u, v):
+    """uint8 planes Y [H, W], U and V [H/2, W/2] -> planar RGB f32
+    [3, H, W] in [0, 255]."""
+    yf = y.float()
+    uf = _up2(u.float() - 128.0)
+    vf = _up2(v.float() - 128.0)
+    r = yf + 1.402 * vf
+    g = yf - 0.344136 * uf - 0.714136 * vf
+    b = yf + 1.772 * uf
+    return torch.clamp(torch.stack([r, g, b]), 0.0, 255.0)
+
+
+def yuv420p_to_rgb_planar(buf):
+    """Packed YUV420P uint8 [H*3/2, W] -> planar RGB f32 [3, H, W]."""
+    return planes_to_rgb_planar(*split_yuv420p(buf))
+
+
+def _box2(c):
+    """2x2 box mean by strided adds (rows, then columns)."""
+    cr = (c[0::2] + c[1::2]) * 0.5
+    return (cr[:, 0::2] + cr[:, 1::2]) * 0.5
+
+
+def _quantize(x):
+    return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+
+
+def rgb_planar_to_planes(rgb):
+    """Planar RGB f32 [3, H, W] in [0, 255] -> uint8 (Y [H, W], U, V
+    [H/2, W/2]); chroma is box-averaged 2x2 before subsampling."""
+    r, g, b = rgb[0], rgb[1], rgb[2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    u = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
+    v = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
+    return _quantize(y), _quantize(_box2(u)), _quantize(_box2(v))
+
+
+def rgb_planar_to_yuv420p(rgb):
+    """Planar RGB f32 [3, H, W] in [0, 255] -> packed YUV420P uint8
+    [H*3/2, W]."""
+    return merge_yuv420p(*rgb_planar_to_planes(rgb))

@@ -7,8 +7,9 @@ through the plan.  ``remap_apply_reference`` is the plain torch version:
 the CPU path, and what the CUDA kernel (ops/cuda_remap.py) is held
 against on the card.
 
-Planes flow planar [C, H, W]; a size group of N same-size inputs stacks
-them [N, C, H, W].
+Planes flow planar [C, H, W], C in {1, 2, 3} (Y, U|V, RGB); a size
+group of N same-size inputs stacks them [N, C, H, W], and B frames of a
+group [B, N, C, H, W] (``remap_apply_frames_reference``).
 """
 
 from dataclasses import dataclass
@@ -19,11 +20,12 @@ import torch
 __all__ = [
     "RemapGroup",
     "RemapPlan",
+    "remap_apply_frames_reference",
     "remap_apply_reference",
     "remap_group",
     "remap_plan",
     "remap_taps",
-    "split_outputs",
+    "split_frame_outputs",
 ]
 
 
@@ -148,27 +150,45 @@ def remap_taps(plan: RemapGroup):
     return idx * valid, w * valid
 
 
-def split_outputs(out: torch.Tensor, plan: RemapGroup, nc: int):
-    """Flat group output -> per-input [nc, rh, rw] views."""
+def split_frame_outputs(out: torch.Tensor, plan: RemapGroup, nc: int):
+    """Flat B-frame group output [B, nc * total] -> per-input
+    [B, nc, rh, rw] views."""
+    b = out.shape[0]
     return [
-        out[nc * s : nc * e].view(nc, rh, rw)
+        out[:, nc * s : nc * e].view(b, nc, rh, rw)
         for s, e, (rh, rw) in zip(
             plan.starts[:-1], plan.starts[1:], plan.out_shapes
         )
     ]
 
 
+def _check_channels(planes_u8, dims):
+    if planes_u8.dim() != dims or planes_u8.shape[dims - 3] not in (1, 2, 3):
+        raise ValueError(
+            f"want {dims}-d planes with C in (1, 2, 3), got {tuple(planes_u8.shape)}"
+        )
+
+
 def remap_apply_reference(planes_u8, plan: RemapGroup, out_dtype=torch.float32):
-    """planes_u8: uint8 [N, C, H, W], C in {1, 2}.  Returns per input a
+    """planes_u8: uint8 [N, C, H, W], C in {1, 2, 3}.  Returns per input a
     [C, rh, rw] tensor in ``out_dtype``: four flat gathers per pixel,
     accumulated in f32, cast at the store; invalid pixels are exactly 0."""
+    _check_channels(planes_u8, 4)
     n, c = planes_u8.shape[:2]
     idx, w = remap_taps(plan)
     flat = planes_u8.reshape(n, c, -1)
-    out = torch.empty(c * plan.starts[-1], dtype=out_dtype, device=planes_u8.device)
+    out = torch.empty((1, c * plan.starts[-1]), dtype=out_dtype, device=planes_u8.device)
     for i, (s, e) in enumerate(zip(plan.starts[:-1], plan.starts[1:])):
         acc = torch.zeros((c, e - s), dtype=torch.float32, device=planes_u8.device)
         for k in range(4):
             acc = acc + flat[i][:, idx[k, s:e]].float() * w[k, s:e]
-        out[c * s : c * e] = acc.reshape(-1).to(out_dtype)
-    return split_outputs(out, plan, c)
+        out[0, c * s : c * e] = acc.reshape(-1).to(out_dtype)
+    return [o[0] for o in split_frame_outputs(out, plan, c)]
+
+
+def remap_apply_frames_reference(planes_u8, plan: RemapGroup, out_dtype=torch.float32):
+    """planes_u8: uint8 [B, N, C, H, W].  Returns per input a
+    [B, C, rh, rw] tensor: ``remap_apply_reference`` frame by frame."""
+    _check_channels(planes_u8, 5)
+    per_frame = [remap_apply_reference(p, plan, out_dtype) for p in planes_u8]
+    return [torch.stack(outs) for outs in zip(*per_frame)]

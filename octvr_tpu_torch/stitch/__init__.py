@@ -1,3 +1,3 @@
-from .mapper import Mapper, StitchPlan
+from .mapper import FastMapper, Mapper, StitchPlan
 
-__all__ = ["Mapper", "StitchPlan"]
+__all__ = ["FastMapper", "Mapper", "StitchPlan"]

@@ -1,7 +1,8 @@
-"""Fixed-geometry multiband (Laplacian) blender
+"""Fixed-geometry blenders, feather and multiband (Laplacian)
 (octvr_tpu/stitch/blenders.py).
 
-Masks, ROIs and weight pyramids are fixed at plan time on the host (the
+Masks, ROIs, feather weights and weight pyramids are fixed at plan time
+on the host (the
 reference's "GPUStaticBlender" idea, stitching/src/blenders.cpp:479-736);
 the per-frame work is dense torch math.  The host plan is always f32;
 ``compute_dtype="bfloat16"`` makes its float fields bf16 when the plan
@@ -14,7 +15,7 @@ from typing import List
 
 import numpy as np
 import torch
-from scipy.ndimage import correlate1d
+from scipy.ndimage import correlate1d, distance_transform_edt
 
 from ..ops.pyramid import down_matrix, pyr_down_mm, pyr_up_mm, up_matrix
 from ..utils.device import tree_to
@@ -25,7 +26,14 @@ WEIGHT_EPS = 1e-5
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-__all__ = ["MultiBandPlan", "build_multiband_plan", "multiband_blend"]
+__all__ = [
+    "FeatherPlan",
+    "MultiBandPlan",
+    "build_feather_plan",
+    "build_multiband_plan",
+    "feather_blend",
+    "multiband_blend",
+]
 
 
 def np_pyr_down(x):
@@ -41,6 +49,48 @@ def _union_roi(rois):
     x1 = max(r[0] + r[2] for r in rois)
     y1 = max(r[1] + r[3] for r in rois)
     return (x0, y0, x1 - x0, y1 - y0)
+
+
+@dataclass
+class FeatherPlan:
+    rois: List[tuple]
+    result_roi: tuple
+    weights: list  # f32 [rh, rw] per image, already normalized
+
+    def to(self, device):
+        return tree_to(self, device)
+
+
+def build_feather_plan(masks, rois, border: int) -> FeatherPlan:
+    """weights = max(EDT(mask) - border, 0), normalized by the canvas total
+    including WEIGHT_EPS (blenders.cpp:531-594)."""
+    result_roi = _union_roi(rois)
+    rx, ry, rw, rh = result_roi
+    dst_w = np.full((rh, rw), WEIGHT_EPS, dtype=np.float32)
+    raw = []
+    for m, roi in zip(masks, rois):
+        w = distance_transform_edt(m > 0).astype(np.float32) - border
+        np.maximum(w, 0.0, out=w)
+        raw.append(w)
+        ox, oy = roi[0] - rx, roi[1] - ry
+        dst_w[oy : oy + roi[3], ox : ox + roi[2]] += w
+    weights = []
+    for w, roi in zip(raw, rois):
+        ox, oy = roi[0] - rx, roi[1] - ry
+        weights.append(w / dst_w[oy : oy + roi[3], ox : ox + roi[2]])
+    return FeatherPlan(rois=list(rois), result_roi=result_roi, weights=weights)
+
+
+def feather_blend(plan: FeatherPlan, imgs, canvas_size):
+    """imgs: [C, rh, rw] warped images.  Returns the weighted sum on a
+    [C, H, W] canvas of the images' dtype."""
+    w, h = canvas_size
+    canvas = torch.zeros(
+        (imgs[0].shape[0], h, w), dtype=imgs[0].dtype, device=imgs[0].device
+    )
+    for img, wmap, (x, y, rw, rh) in zip(imgs, plan.weights, plan.rois):
+        canvas[:, y : y + rh, x : x + rw] += img * wmap[None]
+    return canvas
 
 
 @dataclass

@@ -99,3 +99,19 @@ def test_multiband_bf16_tracks_f32():
     d = np.abs(outs["bfloat16"] - outs["float32"])
     assert d.mean() < 1.5, d.mean()
     assert np.percentile(d, 99) < 6.0, np.percentile(d, 99)
+
+
+@pytest.mark.parametrize("seed,border", [(0, 4), (1, 1), (5, 12)])
+def test_feather_plan_bit_equal_and_blend_matches_jax(seed, border):
+    """The feather weights, normalized by the canvas total including
+    WEIGHT_EPS, np.array_equal to the JAX package's; the blend within
+    1e-5 (relative to 255) of JAX's."""
+    masks, rois, imgs, _ = _scene(seed, c=3)
+    ref = jb.build_feather_plan(masks, rois, border)
+    got = tb.build_feather_plan(masks, rois, border)
+    assert got.rois == ref.rois and got.result_roi == ref.result_roi
+    assert all(np.array_equal(a, b) for a, b in zip(got.weights, ref.weights))
+    out_ref = np.asarray(jb.feather_blend(ref, [jnp.asarray(i) for i in imgs], CANVAS))
+    out = tb.feather_blend(got.to("cpu"), [torch.from_numpy(i) for i in imgs], CANVAS)
+    assert out.dtype == torch.float32 and out.shape == out_ref.shape
+    assert np.abs(out.numpy() - out_ref).max() < 1e-5 * 255

@@ -1,6 +1,6 @@
-"""Port gain solve and yuv420 helpers (octvr_tpu_torch.stitch.gain,
-.yuv_mode, mapper._pool_pow2) against the JAX package's: host plans bit
-for bit, per-frame math at rtol 1e-5."""
+"""Port gain solves and yuv420 helpers (octvr_tpu_torch.stitch.gain,
+.gain_blocks, .yuv_mode, mapper._pool_pow2) against the JAX package's:
+host plans bit for bit, per-frame math at rtol 1e-5."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -8,9 +8,11 @@ import pytest
 import torch
 
 from octvr_tpu.stitch import gain as jg
+from octvr_tpu.stitch import gain_blocks as jgb
 from octvr_tpu.stitch import mapper as jm
 from octvr_tpu.stitch import yuv_mode as jy
 from octvr_tpu_torch.stitch import gain as tg
+from octvr_tpu_torch.stitch import gain_blocks as tgb
 from octvr_tpu_torch.stitch import mapper as tm
 from octvr_tpu_torch.stitch import yuv_mode as ty
 from octvr_tpu_torch.utils.device import tree_to
@@ -81,3 +83,48 @@ def test_pool_pow2_matches_jax(s, cols):
     ref = np.asarray(jm._pool_pow2(jnp.asarray(x), s, col_mat=None if cm is None else jnp.asarray(cm)))
     got = tm._pool_pow2(torch.from_numpy(x), s, col_mat=None if cm is None else torch.from_numpy(cm))
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5)
+
+
+def _blocks_scene(seed, n=3):
+    """n working-scale masks on a 70x45 working canvas (not a multiple
+    of the 16-px block), with overlaps, and their luminance norms."""
+    rng = np.random.default_rng(seed)
+    masks, rois, norms = [], [], []
+    for _ in range(n):
+        w, h = int(rng.integers(30, 50)), int(rng.integers(20, 40))
+        x, y = int(rng.integers(0, 70 - w)), int(rng.integers(0, 45 - h))
+        rois.append((x, y, w, h))
+        masks.append((rng.uniform(size=(h, w)) > 0.15).astype(np.uint8) * 255)
+        norms.append(rng.uniform(50, 400, (h, w)).astype(np.float32))
+    return masks, rois, norms
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_blocks_gain_plan_bit_equal_and_solve_matches_jax(seed):
+    """build_blocks_gain_plan np.array_equal to the JAX package's; the
+    lattice solve and its samples on the luma grid and on the chroma
+    grid (scale x 2, the yuv420 pipeline's use) within 1e-5."""
+    masks, rois, norms = _blocks_scene(seed)
+    ref = jgb.build_blocks_gain_plan(masks, rois, (70, 45), block=16)
+    got = tgb.build_blocks_gain_plan(masks, rois, (70, 45), block=16)
+    for f in ("num_images", "block", "nby", "nbx", "canvas", "rois"):
+        assert getattr(got, f) == getattr(ref, f), f
+    for f in ("cover", "N", "A_static", "b"):
+        a, b = getattr(got, f), getattr(ref, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+
+    dev = tree_to(got, "cpu")
+    lat_ref = np.asarray(jgb.solve_block_lattice(ref, [jnp.asarray(x) for x in norms]))
+    lat = tgb.solve_block_lattice(dev, [torch.from_numpy(x) for x in norms])
+    assert lat.shape == lat_ref.shape == (3, 5, 3)
+    np.testing.assert_allclose(lat.numpy(), lat_ref, rtol=1e-5, atol=1e-5)
+    out_rois = [(2 * x, 2 * y, 2 * w, 2 * h) for x, y, w, h in rois]
+    for rs, scale in ((out_rois, 0.5), ([(x // 2, y // 2, w // 2, h // 2) for x, y, w, h in out_rois], 1.0)):
+        m_ref = jgb.sample_block_lattice(ref, jnp.asarray(lat_ref), rs, scale=scale)
+        m_got = tgb.sample_block_lattice(dev, torch.from_numpy(np.array(lat_ref)), rs, scale=scale)
+        for a, b in zip(m_got, m_ref):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)
+    g_ref = jgb.solve_block_gains(ref, [jnp.asarray(x) for x in norms], out_rois, 0.5)
+    g_got = tgb.solve_block_gains(dev, [torch.from_numpy(x) for x in norms], out_rois, 0.5)
+    for a, b in zip(g_got, g_ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)

@@ -1,6 +1,6 @@
-"""Port tests that need an NVIDIA card: the CUDA remap kernel against its
-plain torch version, and the port's Mapper on the card against the port
-on the CPU.  They carry the ``cuda`` marker and skip without a card.
+"""Port tests that need an NVIDIA card: the CUDA remap kernel (NC=1, 2
+and 3, one frame or a frames axis) against its plain torch version, and
+the port's Mapper on the card against the port on the CPU.  They carry the ``cuda`` marker and skip without a card.
 This file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_on_card.py -q
@@ -13,7 +13,7 @@ import torch
 from octvr_tpu.template import compile_rig
 from octvr_tpu_torch.ops import cuda_remap
 from octvr_tpu_torch.ops.remap import remap_apply_reference, remap_group, remap_plan
-from octvr_tpu_torch.stitch import Mapper
+from octvr_tpu_torch.stitch import FastMapper, Mapper
 from remap_fixtures import IN_H, IN_W, arc_maps, edge_maps
 from rigs import two_fisheye_rig
 
@@ -28,7 +28,7 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("maps", ["arc", "edge"])
-@pytest.mark.parametrize("nc", [1, 2])
+@pytest.mark.parametrize("nc", [1, 2, 3])
 def test_remap_kernel_matches_plain_on_card(cuda_device, maps, nc):
     """f32 within 1e-3 of the plain version; bf16 within 1.0 of the
     kernel's f32; one launch counted per call."""
@@ -50,20 +50,75 @@ def test_remap_kernel_matches_plain_on_card(cuda_device, maps, nc):
         assert (g16.float() - g).abs().max().item() <= 1.0
 
 
-def test_mapper_on_card_matches_cpu(cuda_device):
-    """Port on the card (kernel) vs port on the CPU (plain version), both
-    f32, on a 256x128 two-fisheye rig: Y/UV mean < 0.2, gains 1e-3."""
+def _group_and_planes(device, nc, seed, n=2, frames=None):
+    maps = [arc_maps(64, 256), edge_maps()][:n]
+    group = remap_group([remap_plan(*m, IN_H, IN_W) for m in maps], device)
+    rng = np.random.default_rng(seed)
+    shape = (n, nc, IN_H, IN_W) if frames is None else (frames, n, nc, IN_H, IN_W)
+    return group, torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(device)
+
+
+@pytest.mark.parametrize("nc", [1, 2, 3])
+def test_bf16_store_equals_f32_cast(cuda_device, nc):
+    """The kernel's bf16 store equals its f32 store cast afterwards, bit
+    for bit: the equal-size rgb launch (bf16 out of the kernel) and the
+    JAX package's mixed-size launch (f32, cast by the blend) agree."""
+    group, planes = _group_and_planes(cuda_device, nc, 40 + nc)
+    k32 = cuda_remap.remap_apply(planes, group, torch.float32)
+    k16 = cuda_remap.remap_apply(planes, group, torch.bfloat16)
+    for a, b in zip(k16, k32):
+        assert torch.equal(a, b.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("nc", [1, 2, 3])
+def test_frames_axis_equals_separate_launches(cuda_device, nc):
+    """One frames-axis launch over B=3 frames gives, bit for bit, what B
+    one-frame launches give; each variant counts its own launches."""
+    group, planes = _group_and_planes(cuda_device, nc, 50 + nc, frames=3)
+    cuda_remap.reset_counts()
+    got = cuda_remap.remap_apply_frames(planes, group, torch.bfloat16)
+    assert cuda_remap.COUNTS == {f"frames_nc{nc}_bf16": 1}
+    for b in range(3):
+        for g, one in zip(got, cuda_remap.remap_apply(planes[b], group, torch.bfloat16)):
+            assert torch.equal(g[b], one)
+    assert cuda_remap.COUNTS[f"nc{nc}_bf16"] == 3 and cuda_remap.LAUNCHES == 4
+
+
+def _small_rig(device):
     rig = two_fisheye_rig()
     for s in rig["inputs"]:
         s["options"]["width"] = s["options"]["height"] = 256
     mt = compile_rig(rig, 256, 128)
     mt.create_masks()
-    sizes = [(256, 256)] * 2
     rng = np.random.default_rng(1)
-    frames = [rng.integers(0, 256, (384, 256), dtype=np.uint8) for _ in sizes]
-    kw = dict(blend=16, enable_gain=True, pipeline="yuv420", blend_dtype="float32")
+    return mt, [(256, 256)] * 2, [rng.integers(0, 256, (384, 256), dtype=np.uint8) for _ in range(2)]
+
+
+@pytest.mark.parametrize("pipeline", ["yuv420", "rgb"])
+def test_mapper_on_card_matches_cpu(cuda_device, pipeline):
+    """Port on the card (kernel) vs port on the CPU (plain version), both
+    f32, on a 256x128 two-fisheye rig: Y/UV mean < 0.2, gains 1e-3."""
+    mt, sizes, frames = _small_rig(cuda_device)
+    kw = dict(blend=16, enable_gain=True, pipeline=pipeline, blend_dtype="float32")
     out_cpu, g_cpu = Mapper(mt, sizes, device="cpu", **kw).stitch(frames)
     out, g = Mapper(mt, sizes, device=cuda_device, **kw).stitch(frames)
     d = (out.cpu().float() - out_cpu.float()).abs()
     assert d[:128].mean() < 0.2 and d[128:].mean() < 0.2
     assert (g.cpu() - g_cpu).abs().max().item() < 1e-3
+
+
+def test_stitch_batch_on_card_equals_stitch(cuda_device):
+    """yuv420 stitch_batch (frames-axis launches) on the card equals
+    stitch frame by frame, bit for bit; FastMapper takes yuv420 there."""
+    mt, sizes, frames = _small_rig(cuda_device)
+    m = Mapper(mt, sizes, blend=16, device=cuda_device)
+    assert m.plan.pipeline == "yuv420"
+    sets = [frames, [255 - f for f in frames]]
+    batch = [torch.from_numpy(np.stack(fs)).to(cuda_device) for fs in zip(*sets)]
+    cuda_remap.reset_counts()
+    out, g = m.stitch_batch(batch)
+    assert cuda_remap.COUNTS == {"frames_nc1_bf16": 1, "frames_nc2_bf16": 1}
+    for b, fs in enumerate(sets):
+        o, gb = m.stitch(fs)
+        assert torch.equal(out[b], o) and torch.equal(g[b], gb)
+    assert FastMapper(mt, sizes, device=cuda_device).plan.pipeline == "yuv420"
