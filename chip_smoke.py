@@ -14,18 +14,33 @@ Phases, each failing the run on any error:
      c. NC=3 (the rgb remap) on the small fixtures, at one 4K camera's
         plan and as a single-input launch (the mixed-size shape);
      d. a frames-axis launch (B=4) against B one-frame launches;
+     e. kernel 6, the concat-source mode (each input reads a slice of
+        camera rows of its own height), NC=1/2, f32/bf16, on the 96x256
+        fixture and on one band of the 4K band-sharded plan (S=4, source
+        windows), timed against its plain version, and its frames axis
+        (B=4) against B one-frame launches;
   4. small rigs (two fisheyes, 512x256): the port on CUDA in f32 against
      the port on the CPU, and bf16 against f32 on CUDA;
      b. every Mapper option on both pipelines, FastMapper, and a
         mixed-size rig, CUDA against CPU;
      c. the default-path regression of bench.py: the CUDA defaults
         (yuv420 + bf16) against rgb + f32 on the card;
+     d. the band-sharded stitcher (ShardedMapper, S=4) on CUDA in f32
+        against the port on the CPU, source windows and the two-level
+        blend split each on and off, and against the CUDA Mapper at the
+        JAX package's sharded-vs-single bars;
   5. the main path: 6 x 1920^2 fisheyes -> 3840x1920 equirect,
      yuv420 + bf16 + gains, 24 frame sets from seed 0 on the device;
      ms/frame, first-call time, frame-0 checksum, peak memory, kernel
      launch counts, and one torch.profiler pass;
      b. the same rig on the rgb pipeline (blend 128, gains, bf16);
-     c. stitch_batch at B=4 on the yuv420 pipeline against stitch.
+     c. stitch_batch at B=4 on the yuv420 pipeline against stitch;
+  6. the band-sharded path: the same 4K rig through make_mesh(1, 4) with
+     source windows (kernel 6), blend 128, gains, bf16, on phase 5's
+     frame sets, at B=1 and at B=4 through the frames axis; plan-build
+     and first-call times, ms/frame, enqueue ms/frame, peak memory,
+     checksum, launches per frame, one profiler pass, and the output
+     against phase 5's Mapper output.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -48,6 +63,8 @@ CAM = 1920
 ITERS = 24
 RGB_ITERS = 8
 BATCH = 4
+SPACE = 4  # bands of the sharded phases
+SHARD_ITERS = 12
 
 
 def log(msg):
@@ -119,14 +136,20 @@ def _check_kernel(planes, group, label):
     return err32
 
 
-def _time_kernel(planes, group, dtype, label):
+def _time_kernel(planes, group, dtype, label, nc=None):
+    """Kernel and plain-version ms of one launch by CUDA events; ``nc``
+    names the channels of a flat (concat) source.  The kernel is timed
+    through ``launch_flat``: the wrapper's per-input views cost the host
+    ~5 us per input, which can exceed a short launch, so the wrapper's
+    call is timed apart."""
     from octvr_tpu_torch.ops import cuda_remap
     from octvr_tpu_torch.ops.remap import remap_apply_reference
 
-    ms = cuda_ms(lambda: cuda_remap.remap_apply(planes, group, dtype), iters=50, warmup=5)
+    ms = cuda_ms(lambda: cuda_remap.launch_flat(planes, group, dtype), iters=50, warmup=5)
+    call = cuda_ms(lambda: cuda_remap.remap_apply(planes, group, dtype), iters=50, warmup=5)
     plain = cuda_ms(lambda: remap_apply_reference(planes, group, dtype), iters=3, warmup=1)
-    log(f"  {label}: kernel {ms:.4f} ms, plain torch {plain:.4f} ms "
-        f"({group.starts[-1]} output pixels x {planes.shape[1]} channels)")
+    log(f"  {label}: kernel {ms:.4f} ms (wrapper call {call:.4f}), plain torch {plain:.4f} ms "
+        f"({group.starts[-1]} output pixels x {nc or planes.shape[1]} channels)")
     return ms, plain
 
 
@@ -222,6 +245,95 @@ def phase_frames_axis():
             log(f"  NC={nc}, {str(dtype)[6:]}: bit-identical {same}")
             if not same:
                 raise AssertionError(f"frames-axis launch differs from one-frame launches, NC={nc}")
+
+
+def _check_concat(src, group, label, frames=False):
+    """Kernel 6 against its plain version: f32 within 1e-3 and the bf16
+    store equal to the cast f32 store.  Returns the f32 max abs err."""
+    from octvr_tpu_torch.ops import cuda_remap
+    from octvr_tpu_torch.ops.remap import remap_apply_frames_reference, remap_apply_reference
+
+    apply = cuda_remap.remap_apply_frames if frames else cuda_remap.remap_apply
+    ref = remap_apply_frames_reference if frames else remap_apply_reference
+    k32 = apply(src, group, torch.float32)
+    k16 = apply(src, group, torch.bfloat16)
+    r32 = ref(src, group, torch.float32)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(k32, r32))
+    cast = all(torch.equal(a, b.to(torch.bfloat16)) for a, b in zip(k16, k32))
+    log(f"  {label}: f32 max abs err {err:.3g} (bar < 1e-3), bf16 store == cast f32 store: {cast}")
+    if not (err < 1e-3 and cast):
+        raise AssertionError(f"kernel 6 disagrees with its plain version: {label}")
+    return err
+
+
+def _traffic(groups, ms, label):
+    """Logs the device bytes a frame's launches move at least (x0 of
+    every output pixel; the other 12 B of taps, 4 source bytes per
+    channel and a bf16 store per channel where the map is valid; a store
+    where it is not) and the rate in ``ms``."""
+    total, valid, nbytes = 0, 0, 0
+    for group, nc in groups:
+        n = group.starts[-1]
+        v = int((group.x0 >= 0).sum().item())
+        total, valid = total + n, valid + v
+        nbytes += 4 * n + 2 * nc * n + (12 + 4 * nc) * v
+    log(f"  {label}: {total} output pixels, {valid / total:.3f} of them valid; at least "
+        f"{nbytes / 1e6:.1f} MB moved in {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s)")
+
+
+def _frames_equal_one_frame(src, group, dtype):
+    from octvr_tpu_torch.ops import cuda_remap
+
+    got = cuda_remap.remap_apply_frames(src, group, dtype)
+    return all(
+        torch.equal(g[b], one)
+        for b in range(src.shape[0])
+        for g, one in zip(got, cuda_remap.remap_apply(src[b], group, dtype))
+    )
+
+
+def phase_kernel_concat(host, frame_sets):
+    """Kernel 6 (concat-source mode) against its plain version, on the
+    96x256 fixture and on one band of the 4K band-sharded plan: each
+    input of the band's launch reads its own source block (sliced side
+    cameras, whole pole cameras).  Returns the max f32 error."""
+    from octvr_tpu_torch.ops.remap import concat_source, remap_group, remap_plan
+    from remap_fixtures import H_B, IN_H, IN_W, LO, concat_maps
+
+    log("== 3e. kernel 6 (concat-source remap) vs plain version")
+    sm, _ = sharded_on_card(host)
+    a, _, b_s = concat_maps()
+    group = remap_group([remap_plan(*a, IN_H, IN_W), remap_plan(*b_s, H_B, IN_W)], "cuda")
+    rng = np.random.default_rng(19)
+    err = 0.0
+    for nc in (1, 2):
+        planes = torch.from_numpy(rng.integers(0, 256, (BATCH, nc, IN_H, IN_W), dtype=np.uint8)).cuda()
+        src = concat_source([planes, planes[..., LO : LO + H_B, :]], frames=True)
+        err = max(err, _check_concat(src[0], group, f"96x256 fixture, input B rows [{LO}, {LO + H_B}), NC={nc}"))
+        err = max(err, _check_concat(src, group, f"96x256 fixture, frames axis B={BATCH}, NC={nc}", frames=True))
+
+    band = 1
+    log(f"  4K band-sharded plan, band {band} of {host.S}: source heights {host.src_h}, "
+        f"rows from {host.src_row0[band].tolist()}")
+    bufs = sm._frames_to_device([torch.stack(f) for f in zip(*frame_sets[:BATCH])])
+    ys, uvs = sm._prep_band_yuv(bufs)
+    for nc, parts, plans in ((1, ys, host.remap), (2, uvs, host.remap_uv)):
+        group = remap_group([p[band] for p in plans], "cuda", concat=True)
+        blocks = [x[:, band if x.shape[1] > 1 else 0] for x in parts]  # [B, C, h, W] each
+        src = concat_source(blocks, frames=True)
+        label = f"4K band {band}, NC={nc}, {len(plans)} inputs"
+        err = max(err, _check_concat(src[0], group, label))
+        err = max(err, _check_concat(src, group, f"{label}, frames axis B={BATCH}", frames=True))
+        for dtype in (torch.float32, torch.bfloat16):
+            same = _frames_equal_one_frame(src, group, dtype)
+            log(f"  {label}, frames axis B={BATCH} vs {BATCH} one-frame launches, "
+                f"{str(dtype)[6:]}: bit-identical {same}")
+            if not same:
+                raise AssertionError(f"kernel 6 frames axis differs from one-frame launches: {label}")
+        for dtype in (torch.float32, torch.bfloat16):
+            _time_kernel(src[0], group, dtype, f"{label}, {str(dtype)[6:]}", nc=nc)
+    return err
 
 
 def _in_gamut_frames(rng, n, size, gains):
@@ -421,7 +533,77 @@ def phase_default_path():
     np.testing.assert_allclose(g_d, g_r, rtol=0.05, atol=0.01)
 
 
-def phase_main_path(mt, t_template):
+def _sharded_vs(a, b, h, oh):
+    """(Y mean, Y interior-row mean, UV mean) abs err of two packed
+    canvases; the interior leaves out 8 rows at the top and bottom."""
+    d = (a.cpu().float() - b.cpu().float()).abs()
+    return d[:h].mean().item(), d[8 : oh - 8].mean().item(), d[h:].mean().item()
+
+
+def phase_sharded_small():
+    """The band-sharded stitcher on the small rig (two 1200^2 fisheyes
+    -> 512x256, blend 16 so the two-level split engages at S=4; source
+    windows slice each camera to 768 rows): CUDA f32 against the CPU,
+    and against the CUDA Mapper at the JAX package's sharded bars
+    (tests/test_sharded.py:178-185, tests/test_sharded_split.py:66-72)."""
+    from octvr_tpu.template import compile_rig
+    from octvr_tpu_torch.ops import cuda_remap
+    from octvr_tpu_torch.parallel import ShardedMapper, make_mesh
+    from octvr_tpu_torch.stitch import Mapper
+    from rigs import two_fisheye_rig
+
+    log(f"== 4d. small rig, band-sharded (S={SPACE}): CUDA f32 vs CPU f32, and vs the CUDA Mapper")
+    rig = two_fisheye_rig()
+    mt = compile_rig(rig, 512, 256)
+    mt.create_masks()
+    sizes = [(s["options"]["height"], s["options"]["width"]) for s in rig["inputs"]]
+    frames = _in_gamut_frames(np.random.default_rng(9), 2, sizes[0][0], [1.15, 0.85])
+    batch = [torch.from_numpy(f[None]) for f in frames]
+    base = dict(blend=16, enable_gain=True, blend_dtype="float32")
+    ref, g_ref = Mapper(mt, sizes, pipeline="yuv420", device="cuda", **base).stitch(frames)
+    h = 256
+    for src_windows in (False, True):
+        for split in (True, False):
+            kw = dict(base, src_windows=src_windows, coarse_split=None if split else 3)
+            out_cpu, g_cpu = ShardedMapper(mt, sizes, make_mesh(1, SPACE, device="cpu"), **kw).stitch_batch(batch)
+            sm = ShardedMapper(mt, sizes, make_mesh(1, SPACE, device="cuda"), **kw)
+            cuda_remap.reset_counts()
+            out, g = sm.stitch_batch(batch)
+            torch.cuda.synchronize()
+            counts = dict(cuda_remap.COUNTS)
+            yuv, yuv_cpu = sm.assemble_yuv(out[0]), sm.assemble_yuv(out_cpu[0])
+            y_err, _, uv_err = _sharded_vs(yuv, yuv_cpu, h, h)
+            g_err = (g[0].cpu() - g_cpu[0]).abs().max().item()
+            my, mi, muv = _sharded_vs(yuv, ref, h, h)
+            g_rel = ((g[0] - g_ref).abs() / g_ref.abs()).max().item()
+            log(f"  src_windows={src_windows!s:5} split level {sm.plan.split_level:2d} "
+                f"(src_h {sm.plan.src_h}): vs CPU Y {y_err:.4f}, UV {uv_err:.4f} (bar < 0.2), "
+                f"gains {g_err:.3g} (bar < 1e-3); vs Mapper Y {my:.4f} (bar < 0.1), interior "
+                f"{mi:.4f} (bar < 0.02), UV {muv:.4f} (bar < 0.2), gains rtol {g_rel:.3g} "
+                f"(bar 5e-3); launches {counts}")
+            # without the split the halo grows to 40 rows and the windows
+            # then save too few camera rows to slice
+            want = {f"{'concat_' if sm.plan.sliced else ''}nc{nc}_f32": 1 for nc in (1, 2)}
+            if (split != (sm.plan.split_level >= 0) or sm.plan.sliced != (src_windows and split)
+                    or counts != want):
+                raise AssertionError(f"sharded small rig took the wrong path: {counts}")
+            if not (y_err < 0.2 and uv_err < 0.2 and g_err < 1e-3):
+                raise AssertionError("sharded CUDA vs CPU parity failed")
+            if not (my < 0.1 and mi < 0.02 and muv < 0.2 and g_rel < 5e-3):
+                raise AssertionError("sharded vs Mapper parity failed")
+
+
+def make_frame_sets():
+    """ITERS frame sets of the 4K rig on the card, from seed 0."""
+    rng = np.random.default_rng(0)
+    base = [rng.integers(0, 255, (CAM * 3 // 2, CAM), dtype=np.uint8) for _ in range(6)]
+    base_t = torch.from_numpy(np.stack(base)).cuda().to(torch.int16)
+    sets = [list((base_t + i).clamp(0, 255).to(torch.uint8).unbind(0)) for i in range(ITERS)]
+    torch.cuda.synchronize()
+    return sets
+
+
+def phase_main_path(mt, t_template, frame_sets):
     from octvr_tpu_torch.ops import cuda_remap
     from octvr_tpu_torch.stitch import Mapper
 
@@ -435,14 +617,6 @@ def phase_main_path(mt, t_template):
         f"(blend_dtype={mapper.plan.blender.compute_dtype})")
     if mapper.plan.blender.compute_dtype != "bfloat16":
         raise AssertionError("CUDA default blend dtype is not bfloat16")
-
-    rng = np.random.default_rng(0)
-    base = [rng.integers(0, 255, (CAM * 3 // 2, CAM), dtype=np.uint8) for _ in range(6)]
-    base_t = torch.from_numpy(np.stack(base)).cuda().to(torch.int16)
-    frame_sets = [
-        list((base_t + i).clamp(0, 255).to(torch.uint8).unbind(0)) for i in range(ITERS)
-    ]
-    torch.cuda.synchronize()
 
     # the main path's launch counts: reset just before, read just after
     cuda_remap.reset_counts()
@@ -508,12 +682,14 @@ def phase_main_path(mt, t_template):
     plan_bytes = 16 * (gy.starts[-1] + guv.starts[-1])
     log(f"  per frame: kernel {ms_y + ms_uv:.4f} ms for {plan_bytes / 1e6:.1f} MB of plan "
         f"({plan_bytes / (ms_y + ms_uv) / 1e6:.1f} GB/s of plan reads)")
+    _traffic(((gy, 1), (guv, 2)), ms_y + ms_uv, "Mapper launches (Y + U|V)")
     del planes_y, planes_uv, ys, uvs
 
-    profile(mapper, frame_sets, ms_frame)
+    profile(mapper.stitch, frame_sets, ms_frame)
     return {
         "mapper": mapper,
-        "frame_sets": frame_sets,
+        "out0": out,
+        "gains0": gains,
         "ms_frame": ms_frame,
         "nc1": {"launches": counts["nc1_bf16"], "ms": ms_y, "plain_ms": plain_y, "err": err},
         "nc2": {"launches": counts["nc2_bf16"], "ms": ms_uv, "plain_ms": plain_uv, "err": err},
@@ -573,7 +749,7 @@ def phase_rgb_path(mt, frame_sets):
         raise AssertionError("NC=3 kernel disagrees at the rgb path's shapes")
     ms, plain = _time_kernel(planes, group, torch.bfloat16, "6-camera NC=3 launch, bf16")
     del planes, k, r
-    profile(mapper, sets, ms_frame)
+    profile(mapper.stitch, sets, ms_frame)
     return {"launches": counts["nc3_bf16"], "ms": ms, "plain_ms": plain, "err": err}
 
 
@@ -636,7 +812,7 @@ def phase_stitch_batch(mapper, frame_sets, ms_stitch):
         want = remap_apply_frames_reference(planes, group, torch.float32)
         err = max(err, max((a - b).abs().max().item() for a, b in zip(got, want)))
         ms += cuda_ms(
-            lambda: cuda_remap.remap_apply_frames(planes, group, torch.bfloat16), iters=20, warmup=2
+            lambda: cuda_remap.launch_flat(planes, group, torch.bfloat16, frames=True), iters=20, warmup=2
         )
         plain += cuda_ms(
             lambda: remap_apply_frames_reference(planes, group, torch.bfloat16), iters=2, warmup=1
@@ -649,26 +825,149 @@ def phase_stitch_batch(mapper, frame_sets, ms_stitch):
             "ms": ms, "plain_ms": plain, "err": err}
 
 
+def build_sharded_4k(mt):
+    """The 4K band-sharded host plan (S=4, source windows, blend 128,
+    gains, bf16) and its build time."""
+    from octvr_tpu_torch.parallel import build_sharded_plan
+
+    t0 = time.time()
+    host = build_sharded_plan(mt, [(CAM, CAM)] * 6, SPACE, blend=128, enable_gain=True,
+                              blend_dtype="bfloat16", src_windows=True)
+    return host, time.time() - t0
+
+
+def sharded_on_card(host):
+    """A ShardedMapper over ``host`` moved to the card, and the move's
+    time."""
+    from octvr_tpu_torch.parallel import ShardedMapper, make_mesh
+
+    mesh = make_mesh(1, SPACE, device="cuda")
+    t0 = time.time()
+    sm = ShardedMapper.from_plan(host.to(mesh.device), mesh)
+    torch.cuda.synchronize()
+    return sm, time.time() - t0
+
+
+def _run_sharded(sm, batches):
+    """Each batch through stitch_batch, synchronised at the end: (the
+    last result, enqueue ms/frame, ms/frame)."""
+    n = sum(b[0].shape[0] for b in batches)
+    t0 = time.time()
+    for b in batches:
+        res = sm.stitch_batch(b)
+    enqueue = (time.time() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return res, enqueue, (time.time() - t0) / n * 1e3
+
+
+def phase_sharded(host, t_host, frame_sets, main_path):
+    """The band-sharded 4K path at B=1 and at B=4 (frames axis), against
+    phase 5's Mapper output; kernel 6 at the path's own launches."""
+    from octvr_tpu_torch.ops import cuda_remap
+    from octvr_tpu_torch.ops.remap import concat_source, remap_apply_reference
+
+    sm, t_move = sharded_on_card(host)
+
+    log(f"== 6. band-sharded 4K path: make_mesh(1, {SPACE}), source windows, blend 128, "
+        f"gains, {host.compute_dtype}")
+    log(f"  plan: built on the host in {t_host:.1f} s, moved to the card in {t_move:.1f} s; "
+        f"band {host.bh} rows + halo {host.halo}, split level {host.split_level}/{host.split_level_uv}, "
+        f"source heights {host.src_h} of {CAM}")
+    if not host.sliced or not sm.plan.remap.concat:
+        raise AssertionError("the 4K sharded plan slices no input: kernel 6 is not on the path")
+    sets = frame_sets[:SHARD_ITERS]
+    one = [[f[None] for f in fs] for fs in sets]
+    cuda_remap.reset_counts()
+    t0 = time.time()
+    out, gains = sm.stitch_batch(one[0])
+    yuv = sm.assemble_yuv(out[0])
+    checksum = int(yuv[::101, ::103].to(torch.int64).sum().item())
+    t_first = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _, enq1, ms1 = _run_sharded(sm, one)
+    counts1 = dict(cuda_remap.COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    n1 = len(one) + 1
+    log(f"  first call {t_first:.3f} s; output checksum (frame 0): {checksum}")
+    log(f"  B=1: steady {ms1:.3f} ms/frame over {len(one)} frames ({1e3 / ms1:.2f} frames/s), "
+        f"synchronised; enqueue {enq1:.3f} ms/frame; peak device memory {peak / 2**30:.3f} GiB")
+    log(f"  B=1 launches over {n1} frames: {counts1} "
+        f"({sum(counts1.values()) / n1:.1f} per frame)")
+    if counts1 != {"concat_nc1_bf16": n1, "concat_nc2_bf16": n1}:
+        raise AssertionError(f"expected one kernel-6 launch per plane per frame, got {counts1}")
+
+    batches = [[torch.stack(x) for x in zip(*sets[k : k + BATCH])] for k in range(0, len(sets), BATCH)]
+    sm.stitch_batch(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    cuda_remap.reset_counts()
+    (out4, g4), enq4, ms4 = _run_sharded(sm, batches)
+    counts4 = dict(cuda_remap.COUNTS)
+    log(f"  B={BATCH}: steady {ms4:.3f} ms/frame over {len(batches)} batches, enqueue {enq4:.3f} "
+        f"ms/frame; launches {counts4} ({sum(counts4.values()) / len(sets):.2f} per frame)")
+    if counts4 != {"frames_concat_nc1_bf16": len(batches), "frames_concat_nc2_bf16": len(batches)}:
+        raise AssertionError(f"expected one frames-axis kernel-6 launch per plane per batch, got {counts4}")
+    ref_out, _ = sm.stitch_batch([f[None] for f in sets[-1]])
+    if not torch.equal(out4[-1], ref_out[0]):
+        raise AssertionError("stitch_batch at B=4 differs from B=1 on the last frame")
+
+    if yuv.dtype != torch.uint8 or tuple(yuv.shape) != (CANVAS_H * 3 // 2, CANVAS_W):
+        raise AssertionError(f"bad output {yuv.dtype} {tuple(yuv.shape)}")
+    if not torch.isfinite(gains).all():
+        raise AssertionError(f"non-finite gains {gains}")
+    y_err = (yuv[:CANVAS_H].float() - main_path["out0"][:CANVAS_H].float()).abs().mean().item()
+    g_ref = main_path["gains0"]
+    g_rel = ((gains[0] - g_ref).abs() / g_ref.abs()).max().item()
+    log(f"  vs phase 5's Mapper, frame 0: Y mean abs err {y_err:.4f} (bar < 1.0), gains rtol "
+        f"{g_rel:.3g} (bar 5e-3); gains {[round(g, 5) for g in gains[0].tolist()]}")
+    if not (y_err < 1.0 and g_rel < 5e-3):
+        raise AssertionError("sharded 4K path disagrees with the Mapper")
+
+    # kernel 6 at this path's own launches: every (input, band) pair
+    bufs = sm._frames_to_device(one[0])
+    ys, uvs = sm._prep_band_yuv(bufs)
+    err, ms, plain = 0.0, 0.0, 0.0
+    for nc, parts, group in ((1, ys, sm.plan.remap), (2, uvs, sm.plan.remap_uv)):
+        src = concat_source(parts, frames=True)[0]
+        k = cuda_remap.remap_apply(src, group, torch.float32)
+        r = remap_apply_reference(src, group, torch.float32)
+        err = max(err, max((a - b).abs().max().item() for a, b in zip(k, r)))
+        t_k, t_p = _time_kernel(src, group, torch.bfloat16,
+                                f"sharded launch, NC={nc}, {len(group.src_h)} (input, band) pairs, bf16", nc=nc)
+        ms += t_k
+        plain += t_p
+    log(f"  sharded launches (Y + U|V), kernel vs plain f32: max abs err {err:.3g} (bar < 1e-3)")
+    _traffic(((sm.plan.remap, 1), (sm.plan.remap_uv, 2)), ms, "sharded launches (Y + U|V)")
+    if not err < 1e-3:
+        raise AssertionError("kernel 6 disagrees at the sharded path's launches")
+    del ys, uvs, bufs
+    profile(lambda fs: sm.stitch_batch([f[None] for f in fs]), sets, ms1)
+    return {"launches": counts1["concat_nc1_bf16"] + counts1["concat_nc2_bf16"],
+            "ms": ms, "plain_ms": plain, "err": err}
+
+
 _KERNEL_CLASSES = (
     ("remap (csrc/remap.cu)", ("remap_kernel",)),
     ("matmul (pyramid, pooling)", ("gemm", "xmma", "cutlass")),
     ("dtype casts and copies", ("copy",)),
     ("reductions (gain sums)", ("reduce",)),
+    ("indexing (band pastes, row gathers)", ("index",)),
 )
 
 
-def profile(mapper, frame_sets, ms_frame):
-    """One torch.profiler pass over 3 frames: device time of the
-    kernels, by class and by name, and the device's busy share."""
+def profile(stitch, frame_sets, ms_frame):
+    """One torch.profiler pass over 3 frames, each ``stitch(frame_set)``:
+    device time of the kernels, by class and by name, and the device's
+    busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     for fs in frame_sets[:2]:
-        mapper.stitch(fs)
+        stitch(fs)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for fs in frame_sets[:3]:
-            mapper.stitch(fs)
+            stitch(fs)
         torch.cuda.synchronize()
     kernels = sorted(
         (
@@ -711,12 +1010,18 @@ def main():
     err_cam = phase_kernel_4k_camera(mt)
     err_nc3, ms_single, plain_single = phase_kernel_nc3(mt)
     phase_frames_axis()
+    frame_sets = make_frame_sets()
+    host, t_host = build_sharded_4k(mt)
+    err_concat = phase_kernel_concat(host, frame_sets)
     phase_small_rig()
     mixed_launches, err_mixed = phase_small_rig_options()
     phase_default_path()
-    main_path = phase_main_path(mt, t_template)
-    rgb = phase_rgb_path(mt, main_path["frame_sets"])
-    batch = phase_stitch_batch(main_path["mapper"], main_path["frame_sets"], main_path["ms_frame"])
+    phase_sharded_small()
+    main_path = phase_main_path(mt, t_template, frame_sets)
+    rgb = phase_rgb_path(mt, frame_sets)
+    batch = phase_stitch_batch(main_path["mapper"], frame_sets, main_path["ms_frame"])
+    del main_path["mapper"]
+    sharded = phase_sharded(host, t_host, frame_sets, main_path)
 
     log("== summary")
     log(f"total run time {time.time() - t_start:.1f} s")
@@ -731,6 +1036,8 @@ def main():
          {"launches": mixed_launches, "ms": ms_single, "plain_ms": plain_single, "err": err_nc3},
          err_mixed),
         ("remap frames axis (stitch_batch), kernel 5", f"{pr}:1242", batch, 0.0),
+        ("remap concat-source NC=1/2 (band-sharded, source windows), kernel 6", f"{pr}:1249",
+         sharded, err_concat),
     ]
     print(json.dumps({"kernels": [{
         "name": name,

@@ -17,7 +17,13 @@ import torch
 ALPHA = 0.01
 BETA = 100.0
 
-__all__ = ["GainPlan", "build_gain_plan", "finish_gain_plan", "solve_gains"]
+__all__ = [
+    "GainPlan",
+    "build_gain_plan",
+    "finish_gain_plan",
+    "solve_gains",
+    "solve_pair_means",
+]
 
 
 @dataclass
@@ -102,15 +108,26 @@ def solve_gains(plan: GainPlan, norm_images):
     """norm_images: list of f32 [rh_i, rw_i] per-pixel luminance norms of
     the working-scale warped images.  ``plan`` is a device plan
     (utils/device.tree_to).  Returns gains f32 [n] on the same device."""
-    n = plan.num_images
-    I = plan.Nf.new_zeros(n * n)
+    means = None
     if plan.pairs:
         cnt = [float(plan.N[i][j]) for i, j in plan.pairs]
         vals = [torch.sum(norm_images[i] * m) / c
                 for (i, _), m, c in zip(plan.pairs, plan.masks_i, cnt)]
         vals += [torch.sum(norm_images[j] * m) / c
                  for (_, j), m, c in zip(plan.pairs, plan.masks_j, cnt)]
-        I = I.index_put((plan.pair_idx,), torch.stack(vals))
+        means = torch.stack(vals)
+    return solve_pair_means(plan, means)
+
+
+def solve_pair_means(plan: GainPlan, means):
+    """The gains from the mean norms over each pair's overlap: ``means``
+    f32 [2P] holds I(i, j) for every pair (i, j) of ``plan.pairs``, then
+    I(j, i) (None when there is no pair).  Builds the normal matrix and
+    solves it on the device."""
+    n = plan.num_images
+    I = plan.Nf.new_zeros(n * n)
+    if means is not None:
+        I = I.index_put((plan.pair_idx,), means)
     I = I.view(n, n)
     off = 1.0 - torch.eye(n, dtype=torch.float32, device=I.device)
     diag_dyn = torch.sum(2.0 * ALPHA * I * I * plan.Nf * off, dim=1)

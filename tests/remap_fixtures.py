@@ -5,6 +5,7 @@ tests/test_pallas_remap.py, sampling a 96x256 source."""
 import numpy as np
 
 IN_H, IN_W = 96, 256
+LO, H_B = 36, 40  # concat_maps: input B's source-row slice [LO, LO+H_B)
 
 
 def arc_maps(rh, rw):
@@ -32,3 +33,17 @@ def edge_maps():
         (IN_W - 0.9) / IN_W, (IN_W - 0.01) / IN_W, 32, dtype=np.float32
     )[None, :]
     return m1, m2
+
+
+def concat_maps():
+    """test_pallas_remap::test_pallas_remap_concat_source's maps: input A
+    the arc maps over the whole source; input B samples only source rows
+    ~[42, 68).  Returns (A, B, B rebased onto the slice [LO, LO+H_B))."""
+    m1a, m2a = arc_maps(64, 256)
+    yy, xx = np.meshgrid(np.linspace(0, 1, 64), np.linspace(0, 1, 256), indexing="ij")
+    m1b = (0.1 + 0.8 * xx).astype(np.float32)
+    m2b = ((42 + 26 * yy) / IN_H).astype(np.float32)
+    m1b[5:9, 40:80] = -1
+    m2b[5:9, 40:80] = -1
+    m2b_s = np.where(m2b < 0, -1.0, ((m2b * IN_H) - LO) / H_B).astype(np.float32)
+    return (m1a, m2a), (m1b, m2b), (m1b, m2b_s)

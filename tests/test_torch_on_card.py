@@ -1,6 +1,8 @@
 """Port tests that need an NVIDIA card: the CUDA remap kernel (NC=1, 2
-and 3, one frame or a frames axis) against its plain torch version, and
-the port's Mapper on the card against the port on the CPU.  They carry the ``cuda`` marker and skip without a card.
+and 3, one frame or a frames axis, stacked or concat sources) against
+its plain torch version, and the port's Mapper and ShardedMapper on the
+card against the port on the CPU.  They carry the ``cuda`` marker and
+skip without a card.
 This file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_on_card.py -q
@@ -12,9 +14,15 @@ import torch
 
 from octvr_tpu.template import compile_rig
 from octvr_tpu_torch.ops import cuda_remap
-from octvr_tpu_torch.ops.remap import remap_apply_reference, remap_group, remap_plan
+from octvr_tpu_torch.ops.remap import (
+    concat_source,
+    remap_apply_reference,
+    remap_group,
+    remap_plan,
+)
+from octvr_tpu_torch.parallel import ShardedMapper, make_mesh
 from octvr_tpu_torch.stitch import FastMapper, Mapper
-from remap_fixtures import IN_H, IN_W, arc_maps, edge_maps
+from remap_fixtures import H_B, IN_H, IN_W, LO, arc_maps, concat_maps, edge_maps
 from rigs import two_fisheye_rig
 
 pytestmark = pytest.mark.cuda
@@ -122,3 +130,70 @@ def test_stitch_batch_on_card_equals_stitch(cuda_device):
         o, gb = m.stitch(fs)
         assert torch.equal(out[b], o) and torch.equal(g[b], gb)
     assert FastMapper(mt, sizes, device=cuda_device).plan.pipeline == "yuv420"
+
+
+def _concat_case(device, nc, seed, frames=None):
+    """Kernel 6's fixture: input A reads the whole 96x256 source, input B
+    its rows [LO, LO+H_B) through its rebased map."""
+    a, _, b_s = concat_maps()
+    group = remap_group([remap_plan(*a, IN_H, IN_W), remap_plan(*b_s, H_B, IN_W)], device)
+    rng = np.random.default_rng(seed)
+    shape = (nc, IN_H, IN_W) if frames is None else (frames, nc, IN_H, IN_W)
+    planes = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(device)
+    src = concat_source([planes, planes[..., LO : LO + H_B, :]], frames=frames is not None)
+    return group, src
+
+
+@pytest.mark.parametrize("nc", [1, 2])
+def test_concat_kernel_matches_plain_on_card(cuda_device, nc):
+    """Kernel 6: f32 within 1e-3 of the plain version, the bf16 store
+    equal to the cast f32 store, one concat launch counted per call."""
+    group, src = _concat_case(cuda_device, nc, 60 + nc)
+    assert group.concat
+    cuda_remap.reset_counts()
+    k32 = cuda_remap.remap_apply(src, group, torch.float32)
+    k16 = cuda_remap.remap_apply(src, group, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert cuda_remap.COUNTS == {f"concat_nc{nc}_f32": 1, f"concat_nc{nc}_bf16": 1}
+    for a, b, r in zip(k32, k16, remap_apply_reference(src, group, torch.float32)):
+        assert (a - r).abs().max().item() < 1e-3
+        assert torch.equal(b, a.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("nc", [1, 2])
+def test_concat_frames_axis_equals_one_frame_on_card(cuda_device, nc):
+    """Kernel 6 with the frames axis: one launch over B=3 frames of
+    concat sources equals three one-frame launches bit for bit."""
+    group, src = _concat_case(cuda_device, nc, 70 + nc, frames=3)
+    cuda_remap.reset_counts()
+    got = cuda_remap.remap_apply_frames(src, group, torch.bfloat16)
+    assert cuda_remap.COUNTS == {f"frames_concat_nc{nc}_bf16": 1}
+    for b in range(3):
+        for g, one in zip(got, cuda_remap.remap_apply(src[b], group, torch.bfloat16)):
+            assert torch.equal(g[b], one)
+
+
+@pytest.mark.parametrize("src_windows", [False, True])
+def test_sharded_on_card_matches_cpu(cuda_device, src_windows):
+    """The band-sharded stitcher at S=4 on the card (kernel) vs on the
+    CPU (plain version), both f32, on the two 1200^2 fisheyes -> 512x256
+    rig, where source windows slice each camera to 768 rows: Y/UV mean
+    < 0.2, gains 1e-3; with source windows both launches take kernel 6."""
+    rig = two_fisheye_rig()
+    mt = compile_rig(rig, 512, 256)
+    mt.create_masks()
+    sizes = [(1200, 1200)] * 2
+    rng = np.random.default_rng(2)
+    batch = [torch.from_numpy(rng.integers(0, 256, (1, 1800, 1200), dtype=np.uint8)) for _ in range(2)]
+    kw = dict(blend=16, enable_gain=True, blend_dtype="float32", src_windows=src_windows)
+    out_cpu, g_cpu = ShardedMapper(mt, sizes, make_mesh(1, 4, device="cpu"), **kw).stitch_batch(batch)
+    sm = ShardedMapper(mt, sizes, make_mesh(1, 4, device=cuda_device), **kw)
+    assert sm.plan.sliced == src_windows
+    cuda_remap.reset_counts()
+    out, g = sm.stitch_batch(batch)
+    torch.cuda.synchronize()
+    concat = "concat_" if src_windows else ""
+    assert cuda_remap.COUNTS == {f"{concat}nc1_f32": 1, f"{concat}nc2_f32": 1}
+    d = (sm.assemble_yuv(out[0]).cpu().float() - sm.assemble_yuv(out_cpu[0]).float()).abs()
+    assert d[:256].mean() < 0.2 and d[256:].mean() < 0.2
+    assert (g.cpu() - g_cpu).abs().max().item() < 1e-3
