@@ -8,7 +8,11 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 Phases, each failing the run on any error:
   1. environment: torch, CUDA, triton, the card and its power limit;
   2. build of the CUDA kernels from csrc/ (nvcc, sm_90a), with its time;
-  3. the remap kernel against its plain torch version on the card:
+  3. the remap kernel against its plain torch version on the card; every
+     timed launch also prints the bytes it must move, its bound (bytes
+     over 3.35 TB/s, or f32 flops over 67 TFLOP/s if larger), its share
+     of that bound, and the time of torch.nn.functional.grid_sample on
+     the same shapes (the library yardstick):
      a. NC=1 and NC=2, f32 and bf16, on small fixtures;
      b. at one 1920^2 camera's Y and U|V plans from the 4K template;
      c. NC=3 (the rgb remap) on the small fixtures, at one 4K camera's
@@ -19,6 +23,8 @@ Phases, each failing the run on any error:
         fixture and on one band of the 4K band-sharded plan (S=4, source
         windows), timed against its plain version, and its frames axis
         (B=4) against B one-frame launches;
+     f. kernel 6 at NC=3 (the rgb band path) on the 96x256 fixture, with
+        its frames axis, and on one band of the 4K rgb band-sharded plan;
   4. small rigs (two fisheyes, 512x256): the port on CUDA in f32 against
      the port on the CPU, and bf16 against f32 on CUDA;
      b. every Mapper option on both pipelines, FastMapper, and a
@@ -29,10 +35,15 @@ Phases, each failing the run on any error:
         against the port on the CPU, source windows and the two-level
         blend split each on and off, and against the CUDA Mapper at the
         JAX package's sharded-vs-single bars;
-  5. the main path: 6 x 1920^2 fisheyes -> 3840x1920 equirect,
-     yuv420 + bf16 + gains, 24 frame sets from seed 0 on the device;
-     ms/frame, first-call time, frame-0 checksum, peak memory, kernel
-     launch counts, and one torch.profiler pass;
+     e. every ShardedMapper option on both pipelines at S=4 (split on
+        and off, source windows, mixed sizes, feather, paste, blocks
+        gains, an overlay, scale_output, NV12, out_format="rgb"), CUDA
+        against CPU, with each option's launches;
+  5. the main path: 6 x 1920^2 fisheyes -> 3840x1920, the rig of the JAX
+     package's benchmark (its own copy here, ``six_cam_rig``), yuv420 +
+     bf16 + gains, 24 frame sets from seed 0 on the device; ms/frame,
+     first-call time, frame-0 checksum, peak memory, kernel launch
+     counts, and one torch.profiler pass;
      b. the same rig on the rgb pipeline (blend 128, gains, bf16);
      c. stitch_batch at B=4 on the yuv420 pipeline against stitch;
   6. the band-sharded path: the same 4K rig through make_mesh(1, 4) with
@@ -40,13 +51,17 @@ Phases, each failing the run on any error:
      frame sets, at B=1 and at B=4 through the frames axis; plan-build
      and first-call times, ms/frame, enqueue ms/frame, peak memory,
      checksum, launches per frame, one profiler pass, and the output
-     against phase 5's Mapper output.
+     against phase 5's Mapper output;
+     b. the rgb band path: the same through ShardedMapper(pipeline="rgb")
+        (kernel 6 at NC=3, one launch per frame), against phase 5b's rgb
+        Mapper output.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -65,6 +80,52 @@ RGB_ITERS = 8
 BATCH = 4
 SPACE = 4  # bands of the sharded phases
 SHARD_ITERS = 12
+
+
+PI = math.pi
+
+
+def six_cam_rig():
+    """The 4K rig of the JAX package's benchmark (bench.py:32-69), its
+    own copy: 4 side fisheyes (hfov 1.75) and 2 pole fisheyes (hfov 2.2),
+    1920^2 each, with radial distortion and a vignette."""
+    inputs = []
+    for yaw in (0, PI / 2, PI, -PI / 2):
+        inputs.append(
+            {
+                "type": "fullframe_fisheye",
+                "options": {
+                    "width": CAM,
+                    "height": CAM,
+                    "hfov": 1.75,
+                    "center_dx": 0.0,
+                    "center_dy": 0.0,
+                    "radial": [0.01, -0.02, 0.0],
+                    "vignette": [1.0, -0.15, 0.05, 0.0],
+                    "rotation": {"roll": 0.0, "yaw": yaw, "pitch": 0.0},
+                },
+            }
+        )
+    for pitch in (PI / 2, -PI / 2):
+        inputs.append(
+            {
+                "type": "fullframe_fisheye",
+                "options": {
+                    "width": CAM,
+                    "height": CAM,
+                    "hfov": 2.2,
+                    "center_dx": 0.0,
+                    "center_dy": 0.0,
+                    "radial": [0.01, -0.02, 0.0],
+                    "vignette": [1.0, -0.15, 0.05, 0.0],
+                    "rotation": {"roll": 0.0, "yaw": 0.0, "pitch": pitch},
+                },
+            }
+        )
+    return {
+        "output": {"type": "equirectangular", "options": {}},
+        "inputs": inputs,
+    }
 
 
 def log(msg):
@@ -136,21 +197,104 @@ def _check_kernel(planes, group, label):
     return err32
 
 
-def _time_kernel(planes, group, dtype, label, nc=None):
-    """Kernel and plain-version ms of one launch by CUDA events; ``nc``
-    names the channels of a flat (concat) source.  The kernel is timed
-    through ``launch_flat``: the wrapper's per-input views cost the host
-    ~5 us per input, which can exceed a short launch, so the wrapper's
-    call is timed apart."""
-    from octvr_tpu_torch.ops import cuda_remap
-    from octvr_tpu_torch.ops.remap import remap_apply_reference
+# H100 SXM peaks at its full power limit (700 W): HBM3 bytes/s and
+# f32 FLOP/s outside the tensor cores (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
-    ms = cuda_ms(lambda: cuda_remap.launch_flat(planes, group, dtype), iters=50, warmup=5)
-    call = cuda_ms(lambda: cuda_remap.remap_apply(planes, group, dtype), iters=50, warmup=5)
-    plain = cuda_ms(lambda: remap_apply_reference(planes, group, dtype), iters=3, warmup=1)
-    log(f"  {label}: kernel {ms:.4f} ms (wrapper call {call:.4f}), plain torch {plain:.4f} ms "
-        f"({group.starts[-1]} output pixels x {nc or planes.shape[1]} channels)")
-    return ms, plain
+
+def _bound(groups, dtype, frames=1):
+    """(bytes, bound ms, "bytes" or "operations") of launches over
+    ``groups`` ((RemapGroup, channels) pairs) on ``frames`` frames: each
+    valid output pixel reads 16 B of plan (x0, y0, fx, fy), each invalid
+    one 4 B (x0); every pixel stores its channels; the source bytes are
+    read once.  The plan is read once for all frames, sources and stores
+    once per frame.  4 FMAs per channel per valid pixel (8 f32 flops).
+    The bound is the larger of bytes over the HBM rate and flops over
+    the f32 rate."""
+    store = 2 if dtype == torch.bfloat16 else 4
+    nbytes = flops = 0
+    for group, nc in groups:
+        n = group.starts[-1]
+        v = int((group.x0 >= 0).sum().item())
+        nbytes += 16 * v + 4 * (n - v) + frames * nc * (store * n + group.src_rows * group.in_shape[1])
+        flops += frames * 8 * nc * v
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return nbytes, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _grid_sample_ms(flat, group, nc):
+    """The library yardstick: ms of torch.nn.functional.grid_sample
+    (bilinear, zeros padding, align_corners=False) computing the same
+    output pixels from the same sources, converted to f32 beforehand;
+    one call per distinct source height (its inputs stacked, each
+    input's pixels a row of the sample grid, padded to the longest).
+    Not the contract: it differs at the first half-pixel (F1) and gives
+    no exact 0 for an invalid map."""
+    import torch.nn.functional as F
+
+    W = group.in_shape[1]
+    b = flat.shape[0]
+    calls = {}
+    for i, (r0, h) in enumerate(zip(group.src_row0, group.src_h)):
+        calls.setdefault(h, []).append((i, r0))
+    work = []
+    for h, members in calls.items():
+        srcs, grids = [], []
+        pmax = max(group.starts[i + 1] - group.starts[i] for i, _ in members)
+        for i, r0 in members:
+            s, e = group.starts[i], group.starts[i + 1]
+            srcs.append(flat[:, nc * r0 * W : nc * (r0 + h) * W].view(b, nc, h, W))
+            x = group.x0[s:e].float() + group.fx[s:e]
+            y = group.y0[s:e].float() + group.fy[s:e]
+            grid = torch.stack([2 * (x + 0.5) / W - 1, 2 * (y + 0.5) / h - 1], dim=-1)
+            grid[group.x0[s:e] < 0] = -2.0
+            grids.append(torch.nn.functional.pad(grid, (0, 0, 0, pmax - (e - s)), value=-2.0))
+        inp = torch.stack(srcs, dim=1).flatten(0, 1).float()
+        grid = torch.stack(grids)[:, None].repeat(b, 1, 1, 1)
+        work.append((inp, grid))
+
+    def run():
+        for inp, grid in work:
+            F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros", align_corners=False)
+
+    ms = cuda_ms(run, iters=10, warmup=2)
+    del work
+    return ms
+
+
+def _time_kernel(src, group, dtype, label, nc=None, frames=False):
+    """Kernel, plain-version and library-call ms of one launch by CUDA
+    events, and the launch's bound (``_bound``).  ``nc`` names the
+    channels of a flat (concat) source.  The kernel is timed through
+    ``launch_flat``: the wrapper's per-input views cost the host ~5 us
+    per input, which can exceed a short launch, so the wrapper's call is
+    timed apart.  Returns {ms, plain_ms, bound_ms, bound_by, library_ms,
+    bytes}."""
+    from octvr_tpu_torch.ops import cuda_remap
+    from octvr_tpu_torch.ops.remap import flat_source, remap_apply_frames_reference, remap_apply_reference
+
+    apply = cuda_remap.remap_apply_frames if frames else cuda_remap.remap_apply
+    plain_fn = remap_apply_frames_reference if frames else remap_apply_reference
+    ms = cuda_ms(lambda: cuda_remap.launch_flat(src, group, dtype, frames=frames), iters=50, warmup=5)
+    call = cuda_ms(lambda: apply(src, group, dtype), iters=50, warmup=5)
+    plain = cuda_ms(lambda: plain_fn(src, group, dtype), iters=3, warmup=1)
+    flat, c = flat_source(src, group, frames)
+    nbytes, bound, by = _bound(((group, c),), dtype, flat.shape[0])
+    lib = _grid_sample_ms(flat, group, c)
+    valid = int((group.x0 >= 0).sum().item()) / group.starts[-1]
+    log(f"  {label}: kernel {ms:.4f} ms (wrapper call {call:.4f}), plain torch {plain:.4f} ms, "
+        f"grid_sample {lib:.4f} ms; {group.starts[-1]} output pixels ({valid:.3f} valid) x {c} channels"
+        f"{f' x {flat.shape[0]} frames' if frames else ''}, {nbytes / 1e6:.1f} MB at least, "
+        f"{nbytes / ms / 1e9:.3f} TB/s; bound {bound:.4f} ms ({by}), share {bound / ms:.3f}")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib, "bytes": nbytes}
+
+
+def _sum_times(*ts):
+    """The times of launches that run together, summed."""
+    out = {k: sum(t[k] for t in ts) for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bytes")}
+    out["bound_by"] = "bytes" if all(t["bound_by"] == "bytes" for t in ts) else "operations"
+    return out
 
 
 def phase_kernel_small():
@@ -196,7 +340,7 @@ def phase_kernel_4k_camera(mt):
 def phase_kernel_nc3(mt):
     """NC=3 against its plain version: f32 within 1e-3, bf16 within 1.0
     of f32.  Returns the max f32 error and the single-input launch's
-    kernel and plain times (f32 store, the mixed-size launch)."""
+    times (f32 store, the mixed-size launch; ``_time_kernel``)."""
     from octvr_tpu_torch.ops.remap import remap_group, remap_plan
     from remap_fixtures import IN_H, IN_W, arc_maps, edge_maps
 
@@ -214,9 +358,9 @@ def phase_kernel_nc3(mt):
     group = remap_group([remap_plan(inp.map1, inp.map2, CAM, CAM)], "cuda")
     planes = torch.from_numpy(rng.integers(0, 256, (1, 3, CAM, CAM), dtype=np.uint8)).cuda()
     err = max(err, _check_kernel(planes, group, f"camera 0 single-input launch, NC=3, ROI {inp.map1.shape}"))
-    ms, plain = _time_kernel(planes, group, torch.float32, "camera 0 single-input launch, NC=3, f32")
+    t_single = _time_kernel(planes, group, torch.float32, "camera 0 single-input launch, NC=3, f32")
     _time_kernel(planes, group, torch.bfloat16, "camera 0 single-input launch, NC=3, bf16")
-    return err, ms, plain
+    return err, t_single
 
 
 def phase_frames_axis():
@@ -267,19 +411,15 @@ def _check_concat(src, group, label, frames=False):
     return err
 
 
-def _traffic(groups, ms, label):
-    """Logs the device bytes a frame's launches move at least (x0 of
-    every output pixel; the other 12 B of taps, 4 source bytes per
-    channel and a bf16 store per channel where the map is valid; a store
-    where it is not) and the rate in ``ms``."""
-    total, valid, nbytes = 0, 0, 0
-    for group, nc in groups:
-        n = group.starts[-1]
-        v = int((group.x0 >= 0).sum().item())
-        total, valid = total + n, valid + v
-        nbytes += 4 * n + 2 * nc * n + (12 + 4 * nc) * v
+def _traffic(groups, t, label):
+    """Logs the share of valid output pixels of a frame's launches
+    (``groups``: (RemapGroup, channels) pairs), the bytes they must move
+    (``_bound``) and the rate and bound share in their summed time ``t``."""
+    total = sum(g.starts[-1] for g, _ in groups)
+    valid = sum(int((g.x0 >= 0).sum().item()) for g, _ in groups)
     log(f"  {label}: {total} output pixels, {valid / total:.3f} of them valid; at least "
-        f"{nbytes / 1e6:.1f} MB moved in {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s)")
+        f"{t['bytes'] / 1e6:.1f} MB moved in {t['ms']:.4f} ms ({t['bytes'] / t['ms'] / 1e9:.3f} TB/s); "
+        f"bound {t['bound_ms']:.4f} ms, share {t['bound_ms'] / t['ms']:.3f}; grid_sample {t['library_ms']:.4f} ms")
 
 
 def _frames_equal_one_frame(src, group, dtype):
@@ -336,6 +476,123 @@ def phase_kernel_concat(host, frame_sets):
     return err
 
 
+def phase_kernel_concat_nc3(host, frame_sets):
+    """Kernel 6 at NC=3, the rgb band path's launch, against its plain
+    version: f32 within 1e-3 and the bf16 store equal to the cast f32
+    store, on the 96x256 fixture (and its frames axis, bit-identical to
+    one-frame launches) and on one band of the 4K rgb band-sharded plan,
+    timed with its bound and grid_sample.  Returns the max f32 error."""
+    from octvr_tpu_torch.ops.remap import concat_source, remap_group, remap_plan
+    from remap_fixtures import H_B, IN_H, IN_W, LO, concat_maps
+
+    log("== 3f. kernel 6 at NC=3 (rgb band path) vs plain version")
+    a, _, b_s = concat_maps()
+    group = remap_group([remap_plan(*a, IN_H, IN_W), remap_plan(*b_s, H_B, IN_W)], "cuda")
+    rng = np.random.default_rng(23)
+    planes = torch.from_numpy(rng.integers(0, 256, (BATCH, 3, IN_H, IN_W), dtype=np.uint8)).cuda()
+    src = concat_source([planes, planes[..., LO : LO + H_B, :]], frames=True)
+    err = _check_concat(src[0], group, f"96x256 fixture, input B rows [{LO}, {LO + H_B}), NC=3")
+    err = max(err, _check_concat(src, group, f"96x256 fixture, frames axis B={BATCH}, NC=3", frames=True))
+    for dtype in (torch.float32, torch.bfloat16):
+        same = _frames_equal_one_frame(src, group, dtype)
+        log(f"  96x256 fixture, NC=3, frames axis vs {BATCH} one-frame launches, {str(dtype)[6:]}: "
+            f"bit-identical {same}")
+        if not same:
+            raise AssertionError("kernel 6 NC=3 frames axis differs from one-frame launches")
+
+    band = 1
+    sm, _ = sharded_on_card(host)
+    log(f"  4K rgb band-sharded plan, band {band} of {host.S}: source heights {host.src_h}, "
+        f"rows from {host.src_row0[band].tolist()}")
+    parts = sm._prep_band_rgb(sm._frames_to_device([f[None] for f in frame_sets[0]]))
+    group = remap_group([p[band] for p in host.remap], "cuda", concat=True)
+    src = concat_source([x[0, band if x.shape[1] > 1 else 0] for x in parts])
+    label = f"4K rgb band {band}, NC=3, {len(host.remap)} inputs"
+    err = max(err, _check_concat(src, group, label))
+    for dtype in (torch.float32, torch.bfloat16):
+        _time_kernel(src, group, dtype, f"{label}, {str(dtype)[6:]}", nc=3)
+    return err
+
+
+def phase_sharded_small_options():
+    """Every option of the band-sharded stitcher (ROADMAP item 19b) on
+    the small rig (two 1200^2 fisheyes -> 512x256, blend 16) at S=4:
+    the port on CUDA in f32 against the port on the CPU, Y/UV (or RGB)
+    mean < 0.2 and gains within 1e-3; each size group's plane takes one
+    launch of the kernel, kernel 6 (concat) where source windows slice.
+    The rgb pipeline's multiband cases here; 4d runs the yuv420 ones."""
+    import dataclasses
+
+    from octvr_tpu_torch.ops import cuda_remap
+    from octvr_tpu_torch.parallel import ShardedMapper, make_mesh
+    from octvr_tpu_torch.template import compile_rig
+    from rigs import two_fisheye_rig
+
+    log(f"== 4e. small rig, every ShardedMapper option (S={SPACE}): CUDA f32 vs CPU f32")
+    rig = two_fisheye_rig()
+    mt = compile_rig(rig, 512, 256)
+    mt.create_masks()
+    sizes = [(1200, 1200)] * 2
+    frames = _in_gamut_frames(np.random.default_rng(10), 2, 1200, [1.15, 0.85])
+    ov = _in_gamut_frames(np.random.default_rng(11), 1, 1200, [1.0])
+    mrig = two_fisheye_rig()
+    mrig["inputs"][1]["options"]["width"] = mrig["inputs"][1]["options"]["height"] = 1000
+    mmt = compile_rig(mrig, 512, 256)
+    mmt.create_masks()
+    rng = np.random.default_rng(12)
+    mframes = [_in_gamut_frames(rng, 1, h, [g])[0] for h, g in ((1200, 1.15), (1000, 0.85))]
+    rigs = {
+        "equal": (mt, sizes, frames),
+        "overlay": (dataclasses.replace(mt, overlay_inputs=[mt.inputs[0]]), sizes + sizes[:1], frames + ov),
+        "mixed": (mmt, [(1200, 1200), (1000, 1000)], mframes),
+    }
+    both = [
+        ("mixed sizes", "mixed", {}),
+        ("feather", "equal", {"blend": -8}),
+        ("paste", "equal", {"blend": 0}),
+        ("blocks gains", "equal", {"enable_gain": "blocks"}),
+        ("overlay input", "overlay", {}),
+        ("scale_output=(256, 128)", "equal", {"scale_output": (256, 128)}),
+        ("nv12", "equal", {"frame_format": "nv12"}),
+    ]
+    options = [
+        ("rgb, split", "equal", {"pipeline": "rgb"}),
+        ("rgb, no split", "equal", {"pipeline": "rgb", "coarse_split": 3}),
+        ("rgb, source windows", "equal", {"pipeline": "rgb", "src_windows": True}),
+        ("rgb, out_format rgb", "equal", {"pipeline": "rgb", "out_format": "rgb"}),
+    ] + [(f"{p}, {label}", rig, {"pipeline": p, **kw}) for p in ("rgb", "yuv420") for label, rig, kw in both]
+    for label, rig_name, kw in options:
+        m, sz, fr = rigs[rig_name]
+        if kw.get("frame_format") == "nv12":
+            fr = [_nv12(f) for f in fr]
+        kw = {"blend": 16, "enable_gain": True, "blend_dtype": "float32", **kw}
+        batch = [torch.from_numpy(f[None]) for f in fr]
+        out_cpu, g_cpu = ShardedMapper(m, sz, make_mesh(1, SPACE, device="cpu"), **kw).stitch_batch(batch)
+        sm = ShardedMapper(m, sz, make_mesh(1, SPACE, device="cuda"), **kw)
+        cuda_remap.reset_counts()
+        out, g = sm.stitch_batch(batch)
+        torch.cuda.synchronize()
+        counts = dict(cuda_remap.COUNTS)
+        want = {}
+        for groups, nc in zip((sm.plan.remap_groups, sm.plan.remap_uv_groups), (3,) if kw["pipeline"] == "rgb" else (1, 2)):
+            for grp in groups:
+                key = f"{'concat_' if grp.concat else ''}nc{nc}_f32"
+                want[key] = want.get(key, 0) + 1
+        if kw.get("out_format") == "rgb":
+            y_err = uv_err = (out[0].cpu() - out_cpu[0]).abs().mean().item()
+        else:
+            a, b = sm.assemble_yuv(out[0]).cpu().float(), sm.assemble_yuv(out_cpu[0]).float()
+            oh = a.shape[0] * 2 // 3
+            y_err, uv_err = (a - b)[:oh].abs().mean().item(), (a - b)[oh:].abs().mean().item()
+        g_err = (g[0].cpu() - g_cpu[0]).abs().max().item()
+        log(f"  {label:34s} out {tuple(out.shape[1:])}: Y {y_err:.4f}, UV {uv_err:.4f} (bar < 0.2), "
+            f"gains {g_err:.3g} (bar < 1e-3); launches {counts}")
+        if counts != want or (kw.get("src_windows") and not sm.plan.sliced):
+            raise AssertionError(f"sharded option {label} took the wrong launches: {counts}, want {want}")
+        if not (y_err < 0.2 and uv_err < 0.2 and g_err < 1e-3):
+            raise AssertionError(f"sharded option {label}: CUDA vs CPU parity failed")
+
+
 def _in_gamut_frames(rng, n, size, gains):
     """Packed YUV420P frames of smooth in-gamut RGB scenes (bench.py's
     default-path fixture), each scaled by its exposure gain."""
@@ -363,7 +620,7 @@ def _in_gamut_frames(rng, n, size, gains):
 
 
 def phase_small_rig():
-    from octvr_tpu.template import compile_rig
+    from octvr_tpu_torch.template import compile_rig
     from octvr_tpu_torch.stitch import Mapper
     from rigs import two_fisheye_rig
 
@@ -425,7 +682,7 @@ def phase_small_rig_options():
     the kernel's max f32 error against its plain version at them."""
     import dataclasses
 
-    from octvr_tpu.template import compile_rig
+    from octvr_tpu_torch.template import compile_rig
     from octvr_tpu_torch.ops import cuda_remap
     from octvr_tpu_torch.ops.remap import remap_apply_reference
     from octvr_tpu_torch.stitch import FastMapper, Mapper
@@ -500,7 +757,7 @@ def phase_default_path():
     lens rig with in-gamut frames."""
     import math
 
-    from octvr_tpu.template import compile_rig
+    from octvr_tpu_torch.template import compile_rig
     from octvr_tpu_torch.stitch import Mapper
 
     log("== 4c. default-path regression (bench.py:114-205): CUDA defaults vs rgb + f32")
@@ -546,7 +803,7 @@ def phase_sharded_small():
     windows slice each camera to 768 rows): CUDA f32 against the CPU,
     and against the CUDA Mapper at the JAX package's sharded bars
     (tests/test_sharded.py:178-185, tests/test_sharded_split.py:66-72)."""
-    from octvr_tpu.template import compile_rig
+    from octvr_tpu_torch.template import compile_rig
     from octvr_tpu_torch.ops import cuda_remap
     from octvr_tpu_torch.parallel import ShardedMapper, make_mesh
     from octvr_tpu_torch.stitch import Mapper
@@ -677,12 +934,9 @@ def phase_main_path(mt, t_template, frame_sets):
     log(f"  6-camera group launches, kernel vs plain f32: max abs err {err:.3g}")
     if not err < 1e-3:
         raise AssertionError("remap kernel disagrees at the main path's shapes")
-    ms_y, plain_y = _time_kernel(planes_y, gy, torch.bfloat16, "Y group launch, NC=1, bf16")
-    ms_uv, plain_uv = _time_kernel(planes_uv, guv, torch.bfloat16, "UV group launch, NC=2, bf16")
-    plan_bytes = 16 * (gy.starts[-1] + guv.starts[-1])
-    log(f"  per frame: kernel {ms_y + ms_uv:.4f} ms for {plan_bytes / 1e6:.1f} MB of plan "
-        f"({plan_bytes / (ms_y + ms_uv) / 1e6:.1f} GB/s of plan reads)")
-    _traffic(((gy, 1), (guv, 2)), ms_y + ms_uv, "Mapper launches (Y + U|V)")
+    t_y = _time_kernel(planes_y, gy, torch.bfloat16, "Y group launch, NC=1, bf16")
+    t_uv = _time_kernel(planes_uv, guv, torch.bfloat16, "UV group launch, NC=2, bf16")
+    _traffic(((gy, 1), (guv, 2)), _sum_times(t_y, t_uv), "Mapper launches (Y + U|V)")
     del planes_y, planes_uv, ys, uvs
 
     profile(mapper.stitch, frame_sets, ms_frame)
@@ -691,8 +945,8 @@ def phase_main_path(mt, t_template, frame_sets):
         "out0": out,
         "gains0": gains,
         "ms_frame": ms_frame,
-        "nc1": {"launches": counts["nc1_bf16"], "ms": ms_y, "plain_ms": plain_y, "err": err},
-        "nc2": {"launches": counts["nc2_bf16"], "ms": ms_uv, "plain_ms": plain_uv, "err": err},
+        "nc1": {"launches": counts["nc1_bf16"], "err": err, **t_y},
+        "nc2": {"launches": counts["nc2_bf16"], "err": err, **t_uv},
     }
 
 
@@ -747,10 +1001,10 @@ def phase_rgb_path(mt, frame_sets):
     log(f"  6-camera NC=3 launch, kernel vs plain f32: max abs err {err:.3g}")
     if not err < 1e-3:
         raise AssertionError("NC=3 kernel disagrees at the rgb path's shapes")
-    ms, plain = _time_kernel(planes, group, torch.bfloat16, "6-camera NC=3 launch, bf16")
+    t = _time_kernel(planes, group, torch.bfloat16, "6-camera NC=3 launch, bf16")
     del planes, k, r
     profile(mapper.stitch, sets, ms_frame)
-    return {"launches": counts["nc3_bf16"], "ms": ms, "plain_ms": plain, "err": err}
+    return {"launches": counts["nc3_bf16"], "err": err, "out0": out, "gains0": gains, **t}
 
 
 def phase_stitch_batch(mapper, frame_sets, ms_stitch):
@@ -805,34 +1059,30 @@ def phase_stitch_batch(mapper, frame_sets, ms_stitch):
 
     # the frames-axis launches against their plain version, at B frames
     preps = [mapper._prep_yuv(fs) for fs in sets[:BATCH]]
-    err, ms, plain = 0.0, 0.0, 0.0
+    err, times = 0.0, []
     for k, group in ((0, mapper.plan.remap_groups[0]), (1, mapper.plan.remap_uv_groups[0])):
         planes = torch.stack([torch.stack(p[k]) for p in preps])
         got = cuda_remap.remap_apply_frames(planes, group, torch.float32)
         want = remap_apply_frames_reference(planes, group, torch.float32)
         err = max(err, max((a - b).abs().max().item() for a, b in zip(got, want)))
-        ms += cuda_ms(
-            lambda: cuda_remap.launch_flat(planes, group, torch.bfloat16, frames=True), iters=20, warmup=2
-        )
-        plain += cuda_ms(
-            lambda: remap_apply_frames_reference(planes, group, torch.bfloat16), iters=2, warmup=1
-        )
+        times.append(_time_kernel(planes, group, torch.bfloat16,
+                                  f"frames-axis launch, NC={k + 1}, B={BATCH}, bf16", frames=True))
+    t = _sum_times(*times)
     log(f"  frames-axis launches (Y + U|V, B={BATCH}), kernel vs plain f32: max abs err {err:.3g}; "
-        f"bf16 kernel {ms:.4f} ms, plain torch {plain:.4f} ms")
+        f"bf16 kernel {t['ms']:.4f} ms, plain torch {t['plain_ms']:.4f} ms")
     if not err < 1e-3:
         raise AssertionError("frames-axis kernel disagrees with its plain version")
-    return {"launches": counts["frames_nc1_bf16"] + counts["frames_nc2_bf16"],
-            "ms": ms, "plain_ms": plain, "err": err}
+    return {"launches": counts["frames_nc1_bf16"] + counts["frames_nc2_bf16"], "err": err, **t}
 
 
-def build_sharded_4k(mt):
+def build_sharded_4k(mt, pipeline="yuv420"):
     """The 4K band-sharded host plan (S=4, source windows, blend 128,
-    gains, bf16) and its build time."""
+    gains, bf16) on ``pipeline``, and its build time."""
     from octvr_tpu_torch.parallel import build_sharded_plan
 
     t0 = time.time()
     host = build_sharded_plan(mt, [(CAM, CAM)] * 6, SPACE, blend=128, enable_gain=True,
-                              blend_dtype="bfloat16", src_windows=True)
+                              blend_dtype="bfloat16", pipeline=pipeline, src_windows=True)
     return host, time.time() - t0
 
 
@@ -926,24 +1176,89 @@ def phase_sharded(host, t_host, frame_sets, main_path):
     # kernel 6 at this path's own launches: every (input, band) pair
     bufs = sm._frames_to_device(one[0])
     ys, uvs = sm._prep_band_yuv(bufs)
-    err, ms, plain = 0.0, 0.0, 0.0
+    err, times = 0.0, []
     for nc, parts, group in ((1, ys, sm.plan.remap), (2, uvs, sm.plan.remap_uv)):
         src = concat_source(parts, frames=True)[0]
         k = cuda_remap.remap_apply(src, group, torch.float32)
         r = remap_apply_reference(src, group, torch.float32)
         err = max(err, max((a - b).abs().max().item() for a, b in zip(k, r)))
-        t_k, t_p = _time_kernel(src, group, torch.bfloat16,
-                                f"sharded launch, NC={nc}, {len(group.src_h)} (input, band) pairs, bf16", nc=nc)
-        ms += t_k
-        plain += t_p
+        times.append(_time_kernel(src, group, torch.bfloat16,
+                                  f"sharded launch, NC={nc}, {len(group.src_h)} (input, band) pairs, bf16", nc=nc))
+    t = _sum_times(*times)
     log(f"  sharded launches (Y + U|V), kernel vs plain f32: max abs err {err:.3g} (bar < 1e-3)")
-    _traffic(((sm.plan.remap, 1), (sm.plan.remap_uv, 2)), ms, "sharded launches (Y + U|V)")
+    _traffic(((sm.plan.remap, 1), (sm.plan.remap_uv, 2)), t, "sharded launches (Y + U|V)")
     if not err < 1e-3:
         raise AssertionError("kernel 6 disagrees at the sharded path's launches")
     del ys, uvs, bufs
     profile(lambda fs: sm.stitch_batch([f[None] for f in fs]), sets, ms1)
-    return {"launches": counts1["concat_nc1_bf16"] + counts1["concat_nc2_bf16"],
-            "ms": ms, "plain_ms": plain, "err": err}
+    return {"launches": counts1["concat_nc1_bf16"] + counts1["concat_nc2_bf16"], "err": err, **t}
+
+
+def phase_sharded_rgb(host, t_host, frame_sets, rgb_path):
+    """The 4K rig through the rgb band path: ShardedMapper(pipeline=
+    "rgb", make_mesh(1, 4), src_windows=True), blend 128, gains, bf16,
+    one kernel-6 NC=3 launch per frame; against phase 5b's rgb Mapper
+    output (Y mean < 1.0, gains rtol 5e-3); kernel 6 at NC=3 at the
+    path's own launch."""
+    from octvr_tpu_torch.ops import cuda_remap
+    from octvr_tpu_torch.ops.remap import concat_source, remap_apply_reference
+
+    sm, t_move = sharded_on_card(host)
+    log(f"== 6b. band-sharded 4K rgb path: make_mesh(1, {SPACE}), source windows, blend 128, "
+        f"gains, {host.compute_dtype}")
+    log(f"  plan: built on the host in {t_host:.1f} s, moved to the card in {t_move:.1f} s; "
+        f"band {host.bh} rows + halo {host.halo}, split level {host.split_level}, "
+        f"source heights {host.src_h} of {CAM}")
+    if sm.plan.pipeline != "rgb" or not sm.plan.remap.concat:
+        raise AssertionError("the 4K rgb sharded plan does not take kernel 6 at NC=3")
+    sets = frame_sets[:RGB_ITERS]
+    one = [[f[None] for f in fs] for fs in sets]
+    cuda_remap.reset_counts()
+    t0 = time.time()
+    out, gains = sm.stitch_batch(one[0])
+    yuv = sm.assemble_yuv(out[0])
+    checksum = int(yuv[::101, ::103].to(torch.int64).sum().item())
+    t_first = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _, enq, ms = _run_sharded(sm, one)
+    counts = dict(cuda_remap.COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    n = len(one) + 1
+    log(f"  first call {t_first:.3f} s; output checksum (frame 0): {checksum}")
+    log(f"  steady {ms:.3f} ms/frame over {len(one)} frames ({1e3 / ms:.2f} frames/s), synchronised; "
+        f"enqueue {enq:.3f} ms/frame; peak device memory {peak / 2**30:.3f} GiB")
+    log(f"  launches over {n} frames: {counts} ({sum(counts.values()) / n:.1f} per frame)")
+    if counts != {"concat_nc3_bf16": n}:
+        raise AssertionError(f"expected one kernel-6 NC=3 launch per frame, got {counts}")
+    if yuv.dtype != torch.uint8 or tuple(yuv.shape) != (CANVAS_H * 3 // 2, CANVAS_W):
+        raise AssertionError(f"bad output {yuv.dtype} {tuple(yuv.shape)}")
+    if not torch.isfinite(gains).all():
+        raise AssertionError(f"non-finite gains {gains}")
+    y_err = (yuv[:CANVAS_H].float() - rgb_path["out0"][:CANVAS_H].float()).abs().mean().item()
+    g_ref = rgb_path["gains0"]
+    g_rel = ((gains[0] - g_ref).abs() / g_ref.abs()).max().item()
+    log(f"  vs phase 5b's rgb Mapper, frame 0: Y mean abs err {y_err:.4f} (bar < 1.0), gains rtol "
+        f"{g_rel:.3g} (bar 5e-3); gains {[round(g, 5) for g in gains[0].tolist()]}")
+    if not (y_err < 1.0 and g_rel < 5e-3):
+        raise AssertionError("sharded 4K rgb path disagrees with the rgb Mapper")
+
+    # kernel 6 at NC=3 at this path's own launch: every (input, band) pair
+    parts = sm._prep_band_rgb(sm._frames_to_device(one[0]))
+    src = concat_source(parts, frames=True)[0]
+    group = sm.plan.remap
+    k = cuda_remap.remap_apply(src, group, torch.float32)
+    r = remap_apply_reference(src, group, torch.float32)
+    err = max((a - b).abs().max().item() for a, b in zip(k, r))
+    log(f"  sharded NC=3 launch, kernel vs plain f32: max abs err {err:.3g} (bar < 1e-3)")
+    if not err < 1e-3:
+        raise AssertionError("kernel 6 at NC=3 disagrees at the rgb sharded path's launch")
+    del k, r
+    t = _time_kernel(src, group, torch.bfloat16,
+                     f"sharded launch, NC=3, {len(group.src_h)} (input, band) pairs, bf16", nc=3)
+    del parts, src
+    profile(lambda fs: sm.stitch_batch([f[None] for f in fs]), sets, ms)
+    return {"launches": counts["concat_nc3_bf16"], "err": err, **t}
 
 
 _KERNEL_CLASSES = (
@@ -1000,28 +1315,32 @@ def main():
     phase_build()
     err_small = phase_kernel_small()
 
-    from bench import six_cam_rig
-    from octvr_tpu.template import compile_rig
+    from octvr_tpu_torch.template import compile_rig
 
     t0 = time.time()
     mt = compile_rig(six_cam_rig(), CANVAS_W, CANVAS_H)
     mt.create_masks()
     t_template = time.time() - t0
     err_cam = phase_kernel_4k_camera(mt)
-    err_nc3, ms_single, plain_single = phase_kernel_nc3(mt)
+    err_nc3, t_single = phase_kernel_nc3(mt)
     phase_frames_axis()
     frame_sets = make_frame_sets()
     host, t_host = build_sharded_4k(mt)
     err_concat = phase_kernel_concat(host, frame_sets)
+    host_rgb, t_host_rgb = build_sharded_4k(mt, "rgb")
+    err_concat_nc3 = phase_kernel_concat_nc3(host_rgb, frame_sets)
     phase_small_rig()
     mixed_launches, err_mixed = phase_small_rig_options()
     phase_default_path()
     phase_sharded_small()
+    phase_sharded_small_options()
     main_path = phase_main_path(mt, t_template, frame_sets)
     rgb = phase_rgb_path(mt, frame_sets)
     batch = phase_stitch_batch(main_path["mapper"], frame_sets, main_path["ms_frame"])
     del main_path["mapper"]
     sharded = phase_sharded(host, t_host, frame_sets, main_path)
+    del host
+    sharded_rgb = phase_sharded_rgb(host_rgb, t_host_rgb, frame_sets, rgb)
 
     log("== summary")
     log(f"total run time {time.time() - t_start:.1f} s")
@@ -1033,11 +1352,12 @@ def main():
         ("remap NC=2 (yuv420 U|V), kernel 2", f"{pr}:661", main_path["nc2"], max(err_small, err_cam)),
         ("remap NC=3 (rgb, equal sizes), kernel 3", f"{pr}:661", rgb, err_nc3),
         ("remap NC=3 single-input launch (rgb, mixed sizes), kernel 4", f"{pr}:352",
-         {"launches": mixed_launches, "ms": ms_single, "plain_ms": plain_single, "err": err_nc3},
-         err_mixed),
+         {"launches": mixed_launches, "err": err_nc3, **t_single}, err_mixed),
         ("remap frames axis (stitch_batch), kernel 5", f"{pr}:1242", batch, 0.0),
-        ("remap concat-source NC=1/2 (band-sharded, source windows), kernel 6", f"{pr}:1249",
+        ("remap concat-source NC=1/2 (band-sharded yuv420, source windows), kernel 6", f"{pr}:1249",
          sharded, err_concat),
+        ("remap concat-source NC=3 (band-sharded rgb, source windows), kernel 6", f"{pr}:1249",
+         sharded_rgb, err_concat_nc3),
     ]
     print(json.dumps({"kernels": [{
         "name": name,
@@ -1048,6 +1368,9 @@ def main():
         "max_abs_err": max(r["err"], extra),
         "ms": r["ms"],
         "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
     } for name, replaces, r, extra in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -51,20 +51,20 @@ def merge_nv12(y, u, v):
 
 
 def _up2(c):
-    """Nearest 2x chroma upsample [h, w] -> [2h, 2w]."""
-    return c.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+    """Nearest 2x chroma upsample [..., h, w] -> [..., 2h, 2w]."""
+    return c.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
 
 
 def planes_to_rgb_planar(y, u, v):
-    """uint8 planes Y [H, W], U and V [H/2, W/2] -> planar RGB f32
-    [3, H, W] in [0, 255]."""
+    """uint8 planes Y [..., H, W], U and V [..., H/2, W/2] -> planar RGB
+    f32 [..., 3, H, W] in [0, 255]."""
     yf = y.float()
     uf = _up2(u.float() - 128.0)
     vf = _up2(v.float() - 128.0)
     r = yf + 1.402 * vf
     g = yf - 0.344136 * uf - 0.714136 * vf
     b = yf + 1.772 * uf
-    return torch.clamp(torch.stack([r, g, b]), 0.0, 255.0)
+    return torch.clamp(torch.stack([r, g, b], dim=-3), 0.0, 255.0)
 
 
 def yuv420p_to_rgb_planar(buf):
@@ -73,9 +73,9 @@ def yuv420p_to_rgb_planar(buf):
 
 
 def _box2(c):
-    """2x2 box mean by strided adds (rows, then columns)."""
-    cr = (c[0::2] + c[1::2]) * 0.5
-    return (cr[:, 0::2] + cr[:, 1::2]) * 0.5
+    """2x2 box mean of [..., h, w] by strided adds (rows, then columns)."""
+    cr = (c[..., 0::2, :] + c[..., 1::2, :]) * 0.5
+    return (cr[..., 0::2] + cr[..., 1::2]) * 0.5
 
 
 def _quantize(x):
@@ -83,9 +83,10 @@ def _quantize(x):
 
 
 def rgb_planar_to_planes(rgb):
-    """Planar RGB f32 [3, H, W] in [0, 255] -> uint8 (Y [H, W], U, V
-    [H/2, W/2]); chroma is box-averaged 2x2 before subsampling."""
-    r, g, b = rgb[0], rgb[1], rgb[2]
+    """Planar RGB f32 [..., 3, H, W] in [0, 255] -> uint8 (Y [..., H, W],
+    U, V [..., H/2, W/2]); chroma is box-averaged 2x2 before
+    subsampling."""
+    r, g, b = rgb.unbind(-3)
     y = 0.299 * r + 0.587 * g + 0.114 * b
     u = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
     v = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0

@@ -1,17 +1,19 @@
-"""cv::resize INTER_LINEAR on torch planes (octvr_tpu/ops/resize.py).
+"""cv::resize INTER_LINEAR (octvr_tpu/ops/resize.py), on the host and
+on torch planes.
 
-The sample indices and weights depend only on the two sizes, so the host
-computes them once in numpy with the JAX package's f32 arithmetic
-(``resize_plan``); per frame the device gathers four taps and lerps
-(``resize_apply``).  The shared numpy/JAX module cannot take torch
-tensors: its ``xp.arange(..., dtype=np.float32)`` fails for torch.
+``resize_bilinear_host`` is the host version, numpy in and out, for the
+offline stage (vignette maps, seam masks): the original's numpy path,
+bit for bit.  On the device the sample indices and weights depend only
+on the two sizes, so the host computes them once in numpy with the same
+f32 arithmetic (``resize_plan``); per frame the device gathers four taps
+and lerps (``resize_apply``).
 """
 
 from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["ResizePlan", "resize_apply", "resize_plan"]
+__all__ = ["ResizePlan", "resize_apply", "resize_bilinear_host", "resize_plan"]
 
 
 @dataclass(frozen=True)
@@ -38,6 +40,28 @@ def _axis(dst, src):
     i1 = np.clip(i0 + 1, 0, src - 1)
     w = np.clip(f - i0.astype(np.float32), 0.0, 1.0)
     return i0.astype(np.int64), i1.astype(np.int64), w, (1 - w).astype(np.float32)
+
+
+def resize_bilinear_host(img, out_h, out_w):
+    """numpy [H, W] or [H, W, C] -> [out_h, out_w(, C)] with the same taps
+    and f32 lerp as the device path; integer images are rounded and
+    clipped (the numpy path of octvr_tpu.ops.resize.resize_bilinear,
+    term for term)."""
+    h, w = img.shape[:2]
+    if (h, w) == (out_h, out_w):
+        return img
+    y0, y1, wy, wy1 = _axis(out_h, h)
+    x0, x1, wx, wx1 = _axis(out_w, w)
+    c = (None,) * (img.ndim - 2)  # broadcast over a trailing channel axis
+    wx, wx1 = wx[(slice(None),) + c], wx1[(slice(None),) + c]
+    wy, wy1 = wy[(slice(None), None) + c], wy1[(slice(None), None) + c]
+    work = img.astype(np.float32)
+    top = work[y0][:, x0] * wx1 + work[y0][:, x1] * wx
+    bot = work[y1][:, x0] * wx1 + work[y1][:, x1] * wx
+    out = top * wy1 + bot * wy
+    if np.issubdtype(img.dtype, np.integer):
+        out = np.clip(np.round(out), 0, 255).astype(img.dtype)
+    return out
 
 
 def resize_plan(h, w, out_h, out_w) -> ResizePlan:

@@ -2,8 +2,9 @@
 
 The output canvas is split into ``S`` horizontal bands, each with its
 own halo of recomputed rows.  Only two things ever cross bands: a sum of
-the exposure-gain statistics, and a concatenation of the band-interior
-level-L Gaussian rows in the two-level multiband blend.  Every per-band
+the exposure-gain statistics (the pairwise sums, or the block sums of
+the blocks gains), and a concatenation of the band-interior level-L
+Gaussian rows in the two-level multiband blend.  Every per-band
 constant is homogenized, so the bands' plans stack on a leading ``S``
 axis, and here all ``S`` bands run in one process on one device, with
 the band axis written out as the leading axis of every band tensor: the
@@ -11,21 +12,24 @@ gain sum is a sum over it and the gather a concatenation along it
 (:class:`LocalBands`, the one object a distributed band group replaces).
 A band group costs about the launches of one band.
 
-Per frame set (packed YUV420P, equal camera sizes):
+Per frame set (packed YUV420P or NV12 frames):
 
-    per input: source rows of each band's window (src_windows), split,
-    vignette, quantize -> one remap launch per plane for every (input,
-    band) pair (Y at full and U|V at half resolution; the CUDA kernel's
-    source blocks, TPU kernel 6, when slices differ in height) ->
-    centre chroma -> working-grid norms -> band sum -> gains -> per
-    input window pyramids pasted into band pyramids (single level, or
-    fine levels per band and the coarse levels once on the gathered
-    level-L rows) -> union clamp -> packed YUV420P band outputs.
+    yuv420: per input: source rows of each band's window (src_windows),
+    split, vignette, quantize -> per equal-size camera group one remap
+    launch per plane for every (input, band) pair (Y at full and U|V at
+    half resolution; the CUDA kernel's source blocks, TPU kernel 6, when
+    the blocks are camera-row slices) -> centre chroma -> gains ->
+    blend -> union clamp -> overlays -> (resize) -> packed band outputs.
+    rgb: per input: source rows, split, planar RGB, vignette, quantize ->
+    per group one NC=3 launch -> gains -> blend -> union clamp ->
+    overlays -> clip -> (resize) -> packed band outputs, or planar RGB
+    f32 with ``out_format="rgb"``.
 
-This slice runs the yuv420 pipeline with multiband blending, pairwise
-gains (solved or injected), source windows on and off, and equal camera
-sizes; the other options of the JAX ShardedMapper raise
-``NotImplementedError`` (ROADMAP queue 1 item 19b).
+Gains: pairwise (solved or injected) or blocks, on the single-chip
+Mapper's working grid, summed over the bands.  Blends: multiband (per
+input window pyramids pasted into band pyramids; single level, or fine
+levels per band and the coarse levels once on the gathered level-L
+rows), feather, or an averaged paste (``blend == 0``).
 """
 
 import math
@@ -34,17 +38,19 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-from octvr_tpu.ops.resize import resize_bilinear
-from octvr_tpu.template.compiler import MapperTemplate
+from scipy.ndimage import distance_transform_edt
 
-from ..ops.color import merge_yuv420p
+from ..ops.color import merge_nv12, merge_yuv420p, planes_to_rgb_planar, rgb_planar_to_planes
 from ..ops.cuda_remap import remap_apply, remap_apply_frames
 from ..ops.pyramid import down_matrix, pyr_down_mm, pyr_up_mm, up_matrix
 from ..ops.remap import concat_source, remap_group, remap_plan
+from ..ops.resize import resize_bilinear_host
 from ..stitch.blenders import WEIGHT_EPS, np_pyr_down
 from ..stitch.gain import BETA, GainPlan, finish_gain_plan, solve_pair_means
-from ..stitch.mapper import _pool_cols_matrix, _pool_pow2, _quantize, _working_stride
+from ..stitch.gain_blocks import assemble_and_solve_lattice, build_blocks_gain_plan
+from ..stitch.mapper import _pool_cols_matrix, _pool_pow2, _quantize, _working_stride, size_groups
 from ..stitch.yuv_mode import half_maps, yuv_rgb_norm
+from ..template.compiler import MapperTemplate
 from ..utils.device import resolve_device, tree_to
 
 __all__ = [
@@ -55,8 +61,6 @@ __all__ = [
     "build_sharded_plan",
     "make_mesh",
 ]
-
-_LATER = "not ported yet (ROADMAP queue 1 item 19b)"
 
 
 class LocalBands:
@@ -88,9 +92,10 @@ class BandMesh:
     device: torch.device
 
 
-def make_mesh(n_data: int, n_space: int, *, device) -> BandMesh:
+def make_mesh(n_data: int, n_space: int, *, device="cuda") -> BandMesh:
     """The counterpart of the JAX ``make_mesh``: all bands in this
-    process, on ``device`` ("cuda" without a card raises)."""
+    process, on ``device`` (the card by default; "cuda" without a card
+    raises)."""
     if n_data < 1 or n_space < 1:
         raise ValueError(f"mesh ({n_data}, {n_space}) needs positive sizes")
     return BandMesh(n_data, n_space, resolve_device(device))
@@ -98,13 +103,16 @@ def make_mesh(n_data: int, n_space: int, *, device) -> BandMesh:
 
 @dataclass
 class ShardedPlan:
-    """The band-sharded plan (the JAX ShardedPlan's fields of this
-    slice).  Built on the host by :func:`build_sharded_plan` (numpy;
-    ``remap``/``remap_uv`` as per input, per band RemapPlans) and moved
-    to a device by :meth:`to` (tensors; one RemapGroup per plane whose
-    inputs are the (input, band) pairs, input-major)."""
+    """The band-sharded plan (the JAX ShardedPlan's fields).  Built on
+    the host by :func:`build_sharded_plan` (numpy; ``remap``/``remap_uv``
+    as per input, per band RemapPlans) and moved to a device by
+    :meth:`to` (tensors; per equal-size group one RemapGroup per plane
+    whose inputs are the group's (input, band) pairs, input-major, in
+    ``remap_groups``/``remap_uv_groups``; ``remap``/``remap_uv`` are then
+    the only group's, or None for mixed sizes).  Inputs are the cameras,
+    then the overlay inputs."""
 
-    num_inputs: int
+    num_inputs: int  # cameras (blended)
     S: int
     bh: int  # band height (canvas rows per band)
     halo: int
@@ -112,7 +120,7 @@ class ShardedPlan:
     Hp: int  # padded canvas height (S * bh)
     Wp: int  # padded canvas width
     canvas_size: tuple  # true (W, H)
-    in_size: tuple  # (H, W) of every camera
+    in_sizes: tuple  # (H, W) per camera, then per overlay input
     num_bands: int
     num_bands_uv: int
     stride: int  # working-grid stride (gains), divides bh
@@ -124,9 +132,19 @@ class ShardedPlan:
     src_h: tuple  # per input: source rows of one band's slice
     src_row0_static: tuple  # per input: the slice's first row, or None
     src_row0: np.ndarray  # [S, n] i32
+    num_overlays: int = 0
+    blend_kind: str = "multiband"  # "multiband" | "feather" | "none"
+    pipeline: str = "yuv420"  # "yuv420" | "rgb"
+    frame_format: str = "yuv420p"  # "yuv420p" | "nv12", in and out
+    group_idx: tuple = ()  # per equal-size group: input indices
+    out_size: tuple = None  # (ow, oh) after scale_output
+    obh: int = 0  # output rows per band (bh when unscaled)
+    oW: int = 0  # output band width (Wp when unscaled)
     compute_dtype: str = "float32"
     remap: object = None
     remap_uv: object = None
+    remap_groups: tuple = ()
+    remap_uv_groups: tuple = ()
     split_level: int = -1
     split_level_uv: int = -1
     wp_coarse: Optional[List] = None  # [coarse level][input] [Hp>>l, iw>>l]
@@ -139,22 +157,31 @@ class ShardedPlan:
     union_row_mask_uv: object = None  # [S, ext/2]
     union_col_mask: object = None  # [Wp]
     union_col_mask_uv: object = None  # [Wp/2]
+    feather_w: object = None  # per camera [S, hmax, iw] f32
+    feather_w_uv: object = None  # per camera [S, hmax/2, iw/2]
     weight_pyrs: Optional[List] = None  # [level][input] [S, hmax>>l, iw>>l]
     inv_band_weights: Optional[List] = None  # per level [S, ext>>l, Wp>>l]
     weight_pyrs_uv: Optional[List] = None
     inv_band_weights_uv: Optional[List] = None
     gain: object = None  # GainPlan (N, pairs, b, A_static), no masks
     gm_i: object = None  # [S, P, gh, gw] f32 pair masks (both sides)
+    gain_blocks: object = None  # BlocksGainPlan on the working canvas
+    overlay_masks: object = None  # [S, nov, ext, Wp] f32
+    overlay_masks_uv: object = None  # [S, nov, ext/2, Wp/2]
+    resize_v: object = None  # dict y0, y1 [S, obh] i32 (band rows), fy f32
+    resize_h: object = None  # dict x0, x1 [ow] i32, fx f32
+    resize_v_uv: object = None
+    resize_h_uv: object = None
     vignette: list = None  # per input [H, W] f32, None without one
-    vignette_half: list = None  # per input [H/2, W/2]
+    vignette_half: list = None  # per input [H/2, W/2] (yuv420)
     pool_cols_roi: object = None  # {iw: [iw, iw/stride]}
     pool_cols_roi_uv: object = None  # {iw/2: [iw/2, iw/stride]}
     down_mats: dict = field(default_factory=dict)  # {n: [n/2, n]}
     up_mats: dict = field(default_factory=dict)  # {n: [2n, n]}
 
     def to(self, device):
-        """Device copy: blend constants in ``compute_dtype``, the rest as
-        they are; ``roi_oy`` and ``src_row0`` stay on the host."""
+        """Device copy: multiband constants in ``compute_dtype``, the rest
+        as they are; ``roi_oy`` and ``src_row0`` stay on the host."""
         cdt = torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
         blend = (
             "weight_pyrs", "inv_band_weights", "wp_coarse", "inv_bw_coarse",
@@ -164,26 +191,46 @@ class ShardedPlan:
         other = (
             "coarse_row_idx", "coarse_row_idx_uv", "union_row_mask",
             "union_row_mask_uv", "union_col_mask", "union_col_mask_uv",
-            "gain", "gm_i", "vignette", "vignette_half", "pool_cols_roi",
-            "pool_cols_roi_uv",
+            "feather_w", "feather_w_uv", "gain", "gm_i", "gain_blocks",
+            "overlay_masks", "overlay_masks_uv", "resize_v", "resize_h",
+            "resize_v_uv", "resize_h_uv", "vignette", "vignette_half",
+            "pool_cols_roi", "pool_cols_roi_uv",
         )
         kw = {f: tree_to(getattr(self, f), device, cdt) for f in blend}
         kw.update({f: tree_to(getattr(self, f), device) for f in other})
         for f in ("coarse_row_idx", "coarse_row_idx_uv"):
             if kw[f] is not None:
                 kw[f] = kw[f].long()
+        for f in ("resize_v", "resize_h", "resize_v_uv", "resize_h_uv"):
+            if kw[f] is not None:
+                kw[f] = {k: v if v.is_floating_point() else v.long() for k, v in kw[f].items()}
         blocks = _src_blocks(self)
+
+        def groups(per_input):
+            if per_input is None:
+                return ()
+            return tuple(
+                _band_group(
+                    [per_input[i] for i in idxs], [blocks[i] for i in idxs], device,
+                    any(self.src_h[i] < self.in_sizes[i][0] for i in idxs),
+                )
+                for idxs in self.group_idx
+            )
+
+        g, g_uv = groups(self.remap), groups(self.remap_uv)
         return replace(
             self,
-            remap=_band_group(self.remap, blocks, device, self.sliced),
-            remap_uv=_band_group(self.remap_uv, blocks, device, self.sliced),
+            remap=g[0] if len(g) == 1 else None,
+            remap_uv=g_uv[0] if len(g_uv) == 1 else None,
+            remap_groups=g,
+            remap_uv_groups=g_uv,
             **kw,
         )
 
     @property
     def sliced(self) -> bool:
         """Some input reads a slice of its camera's rows (src_windows)."""
-        return any(h < self.in_size[0] for h in self.src_h)
+        return any(h < hw[0] for h, hw in zip(self.src_h, self.in_sizes))
 
 
 def _src_blocks(plan):
@@ -191,15 +238,17 @@ def _src_blocks(plan):
     band slices start at different rows, else one that every band
     reads."""
     return [
-        plan.S if h < plan.in_size[0] and r is None else 1
-        for h, r in zip(plan.src_h, plan.src_row0_static)
+        plan.S if h < hw[0] and r is None else 1
+        for h, hw, r in zip(plan.src_h, plan.in_sizes, plan.src_row0_static)
     ]
 
 
 def _band_group(plans, blocks, device, sliced):
-    """One RemapGroup over the (input, band) pairs, input-major; pair
-    (i, s) reads input i's block s (or its only block).  With ``sliced``
-    the launch is the concat-source mode (TPU kernel 6)."""
+    """One RemapGroup over the (input, band) pairs of a size group,
+    input-major; pair (i, s) reads input i's block s (or its only
+    block).  ``plans``: per input its per-band RemapPlans; ``blocks``:
+    per input its block count.  With ``sliced`` the launch is the
+    concat-source mode (TPU kernel 6)."""
     base = np.concatenate([[0], np.cumsum(blocks)])
     flat, idx = [], []
     for i, per_band in enumerate(plans):
@@ -231,10 +280,10 @@ def _coarse_row_map(n, lo, hi, start, nrows):
 
 
 def _full_canvas_maps(mt: MapperTemplate, Hp, Wp):
-    """Each input's ROI maps pasted into padded full-canvas maps (-1 =
-    invalid)."""
+    """Each input's (then each overlay input's) ROI maps pasted into
+    padded full-canvas maps (-1 = invalid)."""
     maps = []
-    for inp in mt.inputs:
+    for inp in mt.inputs + mt.overlay_inputs:
         m1 = np.full((Hp, Wp), -1.0, dtype=np.float32)
         m2 = np.full((Hp, Wp), -1.0, dtype=np.float32)
         x, y, w, h = inp.roi
@@ -310,18 +359,21 @@ class _Geom:
         ]
 
 
-def _window_maps(mt, g: _Geom, Hp, Wp, div):
-    """Per band, per input the window maps on the luma (div 1) or chroma
-    (div 2: half_maps of the reflected luma maps) grid, reflect-extended
+def _window_maps(mt, g: _Geom, Hp, Wp, div, reflect=True):
+    """Per band, per input (then overlay input) the window maps on the
+    luma (div 1) or chroma (div 2: half_maps of the luma maps) grid.
+    With ``reflect`` (multiband) the cameras' maps are reflect-extended
     about the union box: reflecting map values reproduces the warped
-    image's reflection at the single-chip blend's aligned-ROI
-    boundary."""
+    image's reflection at the single-chip blend's aligned-ROI boundary.
+    Overlays are pastes and are never reflected."""
+    ncam = len(mt.inputs)
 
     def refl(maps, d):
         arx, ary, arx1, ary1 = (v // d for v in g.union)
         return [
             (_refl_fill(m1, ary, ary1, arx, arx1), _refl_fill(m2, ary, ary1, arx, arx1))
-            for m1, m2 in maps
+            if reflect and i < ncam else (m1, m2)
+            for i, (m1, m2) in enumerate(maps)
         ]
 
     maps = refl(_full_canvas_maps(mt, Hp, Wp), 1)
@@ -330,8 +382,8 @@ def _window_maps(mt, g: _Geom, Hp, Wp, div):
     return [
         [
             (
-                g.wslice(m1, s, i, div=div, pad_value=-1.0, reflect=True),
-                g.wslice(m2, s, i, div=div, pad_value=-1.0, reflect=True),
+                g.wslice(m1, s, i, div=div, pad_value=-1.0, reflect=reflect and i < ncam),
+                g.wslice(m2, s, i, div=div, pad_value=-1.0, reflect=reflect and i < ncam),
             )
             for i, (m1, m2) in enumerate(maps)
         ]
@@ -339,13 +391,14 @@ def _window_maps(mt, g: _Geom, Hp, Wp, div):
     ]
 
 
-def _source_windows(band_maps, in_h, S, src_windows):
+def _source_windows(band_maps, in_heights, S, src_windows):
     """Per input the rows of the camera each band's window maps sample:
     (src_h per input, src_row0 [S, n]).  The slice height is homogenized
     over the bands; slicing is off unless it saves 16 rows or more."""
     n = len(band_maps[0])
     spans = np.zeros((S, n, 2), dtype=np.int64)
     for i in range(n):
+        in_h = in_heights[i]
         for s in range(S):
             m2 = band_maps[s][i][1]
             valid = m2 >= 0
@@ -359,6 +412,7 @@ def _source_windows(band_maps, in_h, S, src_windows):
     src_h = [0] * n
     src_row0 = np.zeros((S, n), dtype=np.int32)
     for i in range(n):
+        in_h = in_heights[i]
         h_i = int((spans[:, i, 1] - spans[:, i, 0]).max())
         h_i = min(in_h, _round_up(h_i, 4) + 4)
         if not src_windows or in_h - h_i < 16 or S == 1:
@@ -370,14 +424,14 @@ def _source_windows(band_maps, in_h, S, src_windows):
     return tuple(src_h), src_row0
 
 
-def _band_remap_plans(band_maps, src_h, src_row0, in_size, div):
+def _band_remap_plans(band_maps, src_h, src_row0, in_sizes, div):
     """Per input, per band RemapPlans of the window maps, rebased onto
     the band's source slice (py' = py - row0, over the sliced height;
     the rebased map is rounded to f32 first, as the JAX package does)."""
-    in_h, in_w = in_size[0] // div, in_size[1] // div
     S, n = src_row0.shape
     plans = []
     for i in range(n):
+        in_h, in_w = in_sizes[i][0] // div, in_sizes[i][1] // div
         h = src_h[i] // div
         per_band = []
         for s in range(S):
@@ -398,22 +452,87 @@ def _band_remap_plans(band_maps, src_h, src_row0, in_size, div):
     return plans
 
 
-def _check_slice(mt, in_sizes, blend, enable_gain):
-    """Raise NotImplementedError for what this slice does not run yet."""
-    if blend <= 0:
-        raise NotImplementedError(f"feather or no blend (blend={blend}): {_LATER}")
-    if enable_gain not in (False, True):
-        raise NotImplementedError(f"enable_gain={enable_gain!r}: {_LATER}")
-    if mt.overlay_inputs:
-        raise NotImplementedError(f"overlay inputs: {_LATER}")
-    if len(in_sizes) != len(mt.inputs):
-        raise ValueError(f"{len(in_sizes)} sizes for {len(mt.inputs)} inputs")
-    if len({tuple(s) for s in in_sizes}) != 1:
-        raise NotImplementedError(f"mixed camera sizes {sorted({tuple(s) for s in in_sizes})}: {_LATER}")
-    h, w = in_sizes[0]
-    W, H = mt.out_size
-    if h % 2 or w % 2 or W % 2 or H % 2:
-        raise ValueError("the yuv420 pipeline needs even frame geometry")
+def _plane_remaps(mt, g, plan, yuv, multiband):
+    """(remap, remap_uv) of a plan whose geometry and source windows are
+    set: per input, per band RemapPlans on the luma (or RGB) grid and,
+    for yuv420, on the chroma grid (else None)."""
+    remap = _band_remap_plans(
+        _window_maps(mt, g, plan.Hp, plan.Wp, 1, multiband), plan.src_h, plan.src_row0, plan.in_sizes, 1
+    )
+    if not yuv:
+        return remap, None
+    return remap, _band_remap_plans(
+        _window_maps(mt, g, plan.Hp, plan.Wp, 2, multiband), plan.src_h, plan.src_row0, plan.in_sizes, 2
+    )
+
+
+def _check_options(mt, in_sizes, pipeline, enable_gain, frame_format, out_size):
+    """Raise ValueError on options the band stitch does not take.
+    Returns (H, W) per camera, then per overlay input: sizes given for
+    the cameras only repeat the first camera's size for the overlays, as
+    in the JAX package."""
+    if pipeline not in ("rgb", "yuv420"):
+        raise ValueError(f"unknown pipeline {pipeline!r}")
+    if frame_format not in ("yuv420p", "nv12"):
+        raise ValueError(f"unknown frame_format {frame_format!r}")
+    if enable_gain not in (False, True, "blocks"):
+        raise ValueError(f"unknown enable_gain {enable_gain!r}")
+    ncam, nov = len(mt.inputs), len(mt.overlay_inputs)
+    sizes = [tuple(int(v) for v in s) for s in in_sizes]
+    if len(sizes) == ncam and nov:
+        sizes += [sizes[0]] * nov
+    if len(sizes) != ncam + nov:
+        raise ValueError(f"{len(in_sizes)} sizes for {ncam} inputs and {nov} overlay inputs")
+    if any(h % 2 or w % 2 for h, w in sizes):
+        raise ValueError(f"packed YUV420P/NV12 frames need even camera sizes, got {sizes}")
+    if (pipeline == "yuv420" or frame_format == "nv12") and (out_size[0] % 2 or out_size[1] % 2):
+        raise ValueError(f"the output size {tuple(out_size)} must be even")
+    return tuple(sizes)
+
+
+def _resize_halo(S, W, H, oh, obh, bh):
+    """Rows the output resize's vertical taps reach past a band's
+    interior, over both planes (sharded.py:530-555 of the JAX package)."""
+    need = 0
+    for s in range(S):
+        for src_h, dst_h, b_l, up in ((H, oh, bh, 1), (H // 2, oh // 2, bh // 2, 2)):
+            nrows = obh // up
+            yo = s * nrows + np.arange(nrows)
+            ys = (yo + 0.5) * (src_h / dst_h) - 0.5
+            y0 = np.clip(np.floor(ys), 0, src_h - 1).astype(np.int64)
+            y1 = np.minimum(y0 + 1, src_h - 1)
+            top = s * b_l
+            need = max(need, (top - int(y0.min())) * up, (int(y1.max()) - (top + b_l - 1)) * up)
+    return need
+
+
+def _vtab(S, src_h, dst_h, nrows, b_l, h_l):
+    """Per band INTER_LINEAR row taps of its output rows, as rows of its
+    extended band (sharded.py:1328 of the JAX package)."""
+    y0t = np.zeros((S, nrows), np.int32)
+    y1t = np.zeros((S, nrows), np.int32)
+    fyt = np.zeros((S, nrows), np.float32)
+    for s in range(S):
+        yo = s * nrows + np.arange(nrows)
+        ys = (yo + 0.5) * (src_h / dst_h) - 0.5
+        y0 = np.clip(np.floor(ys), 0, src_h - 1).astype(np.int64)
+        y1 = np.minimum(y0 + 1, src_h - 1)
+        fy = np.clip(ys - y0, 0.0, 1.0)
+        top = s * b_l - h_l
+        assert y0.min() - top >= 0 and y1.max() - top < b_l + 2 * h_l, (
+            "scale_output vertical taps escape the extended band"
+        )
+        y0t[s], y1t[s], fyt[s] = y0 - top, y1 - top, fy
+    return dict(y0=y0t, y1=y1t, fy=fyt)
+
+
+def _htab(src_w, dst_w):
+    """INTER_LINEAR column taps, the same for every band."""
+    xs = (np.arange(dst_w) + 0.5) * (src_w / dst_w) - 0.5
+    x0 = np.clip(np.floor(xs), 0, src_w - 1).astype(np.int64)
+    x1 = np.minimum(x0 + 1, src_w - 1)
+    fx = np.clip(xs - x0, 0.0, 1.0)
+    return dict(x0=x0.astype(np.int32), x1=x1.astype(np.int32), fx=fx.astype(np.float32))
 
 
 def build_sharded_plan(
@@ -421,32 +540,40 @@ def build_sharded_plan(
     in_sizes,
     n_space: int,
     blend: int = 128,
-    enable_gain: bool = True,
+    enable_gain=True,
     blend_dtype: str = "float32",
+    pipeline: str = "yuv420",
+    scale_output=None,
+    frame_format: str = "yuv420p",
     coarse_split=None,
     src_windows: bool = False,
 ) -> ShardedPlan:
-    """Host (numpy) plan of the yuv420 band stitch, the JAX package's
-    arithmetic (sharded.py:433-1376) for this slice's options.  Every
-    per-frame stage runs at window size [hmax_i, iw_i]: the x window is
-    band-independent, the y window has one height per input and a
-    per-band offset."""
+    """Host (numpy) plan of the band stitch, the JAX package's arithmetic
+    (sharded.py:433-1376).  Every per-frame stage runs at window size
+    [hmax_i, iw_i]: the x window is band-independent, the y window has
+    one height per input and a per-band offset.  in_sizes: (H, W) per
+    camera, then per overlay input (or per camera only)."""
     if blend_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"blend dtype must be 'float32' or 'bfloat16', got {blend_dtype!r}")
-    _check_slice(mt, in_sizes, blend, enable_gain)
     W, H = mt.out_size
-    ncam = len(mt.inputs)
-    in_size = tuple(in_sizes[0])
-    B = int(math.ceil(math.log(blend) / math.log(2.0)) - 1.0)
+    out_size = tuple(scale_output) if scale_output else (W, H)
+    sizes = _check_options(mt, in_sizes, pipeline, enable_gain, frame_format, out_size)
+    yuv = pipeline == "yuv420"
+    ncam, nov = len(mt.inputs), len(mt.overlay_inputs)
+    if blend > 0:
+        kind, B = "multiband", int(math.ceil(math.log(blend) / math.log(2.0)) - 1.0)
+    else:
+        kind, B = ("feather" if blend < 0 else "none"), 0
+    multiband = kind == "multiband"
     stride = _working_stride(W, H)
     step = 1 << B
     # two-level split: fine levels 0..L-1 per band under a 5*2^L halo,
     # coarse levels L..B once on the gathered level-L Gaussian
     if coarse_split is None:
-        L = 2 if (n_space > 1 and B > 2) else B
+        L = 2 if (multiband and n_space > 1 and B > 2) else B
     else:
         L = max(1, min(int(coarse_split), B))
-    split = L < B
+    split = multiband and L < B
     fine_step = (1 << L) if split else step
     ralign = max(step, stride, 4)
     ralign_y = max(fine_step, stride, 4) if split else ralign
@@ -454,7 +581,16 @@ def build_sharded_plan(
     Hp = _round_up(H, _m * step // math.gcd(_m, step))
     Wp = _round_up(W, ralign)
     bh = Hp // n_space
-    halo = _round_up(5 * fine_step, ralign_y)
+    halo = _round_up(5 * fine_step if multiband else 8, ralign_y)
+    ow, oh = out_size
+    obh = bh
+    if out_size != (W, H):
+        # each band emits its own output rows; their vertical taps must
+        # stay inside the extended band
+        obh = _round_up(oh, n_space * 2) // n_space
+        need = _resize_halo(n_space, W, H, oh, obh, bh)
+        if n_space > 1 and need > 0:
+            halo = max(halo, _round_up(need, ralign_y))
     if n_space == 1:
         halo, split, L, fine_step = 0, False, B, step
     ext = bh + 2 * halo
@@ -463,22 +599,23 @@ def build_sharded_plan(
 
     # per-input aligned windows: band-independent x extent, one y
     # height over the bands, per-band y offset; gap = the blend
-    # weights' pyramid support
-    gap, gap_y = 5 * step, 5 * fine_step
-    union = _union_box(mt, step)
+    # weights' pyramid support (cameras of a multiband blend only)
+    gap, gap_y = (5 * step, 5 * fine_step) if multiband else (0, 0)
+    union = _union_box(mt, step) if multiband and ncam else (0, 0, Wp, Hp)
     arx, ary, arx1, ary1 = union
     rois = []
-    oy_table = np.zeros((S, ncam), dtype=np.int32)
+    oy_table = np.zeros((S, ncam + nov), dtype=np.int32)
     oy_static = []
-    for idx, inp in enumerate(mt.inputs):
+    for idx, inp in enumerate(mt.inputs + mt.overlay_inputs):
         x, y, w_, h_ = inp.roi
-        x0 = max(0, _round_down(x - gap, ralign))
-        x1 = min(Wp, _round_up(x + w_ + gap, ralign))
+        g_x, g_y = (gap, gap_y) if idx < ncam else (0, 0)
+        x0 = max(0, _round_down(x - g_x, ralign))
+        x1 = min(Wp, _round_up(x + w_ + g_x, ralign))
         wins = []
         for s in range(S):
             top = s * bh - halo
-            ly0 = max(0, _round_down(y - gap_y - top, ralign_y))
-            ly1 = min(ext, _round_up(y + h_ + gap_y - top, ralign_y))
+            ly0 = max(0, _round_down(y - g_y - top, ralign_y))
+            ly1 = min(ext, _round_up(y + h_ + g_y - top, ralign_y))
             wins.append((ly0, ly1) if ly1 > ly0 else None)
         hmax = max((w1 - w0 for w0, w1 in filter(None, wins)), default=0)
         hmax = min(ext, max(hmax, ralign_y))
@@ -489,18 +626,14 @@ def build_sharded_plan(
     rois = tuple(rois)
     g = _Geom(S, bh, halo, rois, oy_table, union)
 
-    band_maps = _window_maps(mt, g, Hp, Wp, div=1)
-    src_h, src_row0 = _source_windows(band_maps, in_size[0], S, src_windows)
+    band_maps = _window_maps(mt, g, Hp, Wp, 1, multiband)
+    src_h, src_row0 = _source_windows(band_maps, [h for h, _ in sizes], S, src_windows)
     src_static = tuple(
         int(src_row0[0, i]) if (src_row0[:, i] == src_row0[0, i]).all() else None
-        for i in range(ncam)
-    )
-    remap = _band_remap_plans(band_maps, src_h, src_row0, in_size, div=1)
-    remap_uv = _band_remap_plans(
-        _window_maps(mt, g, Hp, Wp, div=2), src_h, src_row0, in_size, div=2
+        for i in range(ncam + nov)
     )
 
-    B_uv = max(1, B - 1)
+    B_uv = max(1, B - 1) if multiband else 0
     plan = ShardedPlan(
         num_inputs=ncam,
         S=S,
@@ -510,7 +643,7 @@ def build_sharded_plan(
         Hp=Hp,
         Wp=Wp,
         canvas_size=(W, H),
-        in_size=in_size,
+        in_sizes=sizes,
         num_bands=B,
         num_bands_uv=B_uv,
         stride=stride,
@@ -522,10 +655,17 @@ def build_sharded_plan(
         src_h=src_h,
         src_row0_static=src_static,
         src_row0=src_row0,
-        compute_dtype=blend_dtype,
-        remap=remap,
-        remap_uv=remap_uv,
+        num_overlays=nov,
+        blend_kind=kind,
+        pipeline=pipeline,
+        frame_format=frame_format,
+        group_idx=size_groups(sizes),
+        out_size=out_size,
+        obh=obh,
+        oW=ow if out_size != (W, H) else Wp,
+        compute_dtype=blend_dtype if multiband else "float32",
     )
+    plan.remap, plan.remap_uv = _plane_remaps(mt, g, plan, yuv, multiband)
     bh2, halo2, ext2 = bh // 2, halo // 2, ext // 2
 
     full_masks = []
@@ -538,8 +678,138 @@ def build_sharded_plan(
     def h2(a):
         return a.reshape(Hp // 2, 2, Wp // 2, 2).mean(axis=(1, 3)).astype(np.float32)
 
-    # ---- multiband constants: full-canvas weight pyramids, reflect-
-    # filled about the union box at every level
+    if kind == "feather":
+        # full-canvas feather weights, normalized by their sum, sliced to
+        # each camera's windows
+        border = -blend
+        dst = np.full((Hp, Wp), WEIGHT_EPS, dtype=np.float32)
+        raw = []
+        for fm in full_masks:
+            wmap = distance_transform_edt(fm > 0).astype(np.float32) - border
+            np.maximum(wmap, 0.0, out=wmap)
+            raw.append(wmap)
+            dst += wmap
+        norm = [wm / dst for wm in raw]
+        plan.feather_w = [np.stack([g.wslice(wm, s, i) for s in range(S)]) for i, wm in enumerate(norm)]
+        if yuv:
+            plan.feather_w_uv = [
+                np.stack([g.wslice(h2(wm), s, i, div=2) for s in range(S)]) for i, wm in enumerate(norm)
+            ]
+    elif multiband:
+        _multiband_constants(plan, mt, g, union, split, L, yuv)
+
+    # ---- gains on the global working grid: the single-chip Mapper's
+    # blocks, summed over the bands
+    if enable_gain and ncam > 1:
+        assert bh % stride == 0 and Wp % stride == 0
+        work = []
+        for fm in full_masks:
+            mb = (fm > 0).astype(np.float32)
+            pooled = mb.reshape(Hp // stride, stride, Wp // stride, stride).mean(axis=(1, 3))
+            work.append(pooled > 0.999)
+        gh = bh // stride
+        pairs, gm = [], []
+        N = np.zeros((ncam, ncam), dtype=np.int64)
+        for i in range(ncam):
+            N[i, i] = max(1, int(np.count_nonzero(work[i])))
+        for i in range(ncam):
+            for j in range(i + 1, ncam):
+                inter = work[i] & work[j]
+                cnt = int(inter.sum())
+                N[i, j] = N[j, i] = max(1, cnt)
+                if cnt:
+                    pairs.append((i, j))
+                    gm.append(inter.astype(np.float32))
+        plan.gain = finish_gain_plan(
+            GainPlan(
+                num_images=ncam,
+                N=tuple(tuple(int(v) for v in row) for row in N),
+                b=(BETA * N.sum(axis=1)).astype(np.float32),
+                A_static=np.diag(BETA * N.sum(axis=1)).astype(np.float32),
+                pairs=tuple(pairs),
+            )
+        )
+        if pairs:
+            stack = np.stack(gm)
+            plan.gm_i = np.stack([stack[:, s * gh : (s + 1) * gh] for s in range(S)])
+        if enable_gain == "blocks":
+            # the BlocksGainCompensator lattice on the working canvas
+            # (exposure_compensate.cpp:330-438); each band's block sums
+            # are summed over the band group at solve time
+            ws_w, ws_h = -(-W // stride), -(-H // stride)
+            masks_ws = [wk[:ws_h, :ws_w].astype(np.uint8) * 255 for wk in work]
+            plan.gain_blocks = build_blocks_gain_plan(masks_ws, [(0, 0, ws_w, ws_h)] * ncam, (ws_w, ws_h))
+
+    # ---- overlay paste masks on the extended-band rows (the halo rows
+    # feed the output resize taps)
+    if nov:
+        oms = []
+        for inp in mt.overlay_inputs:
+            fm = np.zeros((Hp, Wp), dtype=np.float32)
+            x, y, w_, h_ = inp.roi
+            fm[y : y + h_, x : x + w_] = (inp.mask > 0).astype(np.float32)
+            oms.append(fm)
+        plan.overlay_masks = np.stack([np.stack([g.band_slice(om, s) for om in oms]) for s in range(S)])
+        if yuv:
+            oms_uv = [(h2(om) > 0).astype(np.float32) for om in oms]
+            plan.overlay_masks_uv = np.stack(
+                [np.stack([g.band_slice(om, s, div=2) for om in oms_uv]) for s in range(S)]
+            )
+
+    # ---- union-box clamps (multiband), only when the camera union
+    # leaves canvas rows or columns uncovered
+    if multiband and (arx > 0 or ary > 0 or arx1 < W or ary1 < H):
+        rows = np.zeros((S, ext), dtype=np.float32)
+        rows_uv = np.zeros((S, ext2), dtype=np.float32)
+        for s in range(S):
+            r = s * bh - halo + np.arange(ext)
+            rows[s] = ((r >= ary) & (r < ary1)).astype(np.float32)
+            r2 = s * bh2 - halo2 + np.arange(ext2)
+            rows_uv[s] = ((r2 >= ary // 2) & (r2 < ary1 // 2)).astype(np.float32)
+        plan.union_row_mask = rows
+        plan.union_row_mask_uv = rows_uv
+        c = np.arange(Wp)
+        plan.union_col_mask = ((c >= arx) & (c < arx1)).astype(np.float32)
+        c2 = np.arange(Wp // 2)
+        plan.union_col_mask_uv = ((c2 >= arx // 2) & (c2 < arx1 // 2)).astype(np.float32)
+
+    # ---- vignettes (None where the template has none: the JAX package's
+    # ones, whose multiply changes no byte)
+    plan.vignette = [
+        None if inp.vignette is None
+        else np.asarray(resize_bilinear_host(inp.vignette, Hi, Wi)).astype(np.float32)
+        for inp, (Hi, Wi) in zip(mt.inputs + mt.overlay_inputs, sizes)
+    ]
+    if yuv:
+        plan.vignette_half = [
+            None if v is None
+            else v.reshape(v.shape[0] // 2, 2, v.shape[1] // 2, 2).mean(axis=(1, 3)).astype(np.float32)
+            for v in plan.vignette
+        ]
+    if out_size != (W, H):
+        plan.resize_v = _vtab(S, H, oh, obh, bh, halo)
+        plan.resize_h = _htab(W, ow)
+        if yuv:
+            plan.resize_v_uv = _vtab(S, H // 2, oh // 2, obh // 2, bh2, halo2)
+            plan.resize_h_uv = _htab(W // 2, ow // 2)
+    if stride > 1:
+        cams = set(rois[:ncam])
+        plan.pool_cols_roi = {iw: _pool_cols_matrix(iw, stride) for _, iw, _ in cams}
+        if yuv and stride > 2:
+            plan.pool_cols_roi_uv = {iw // 2: _pool_cols_matrix(iw // 2, stride // 2) for _, iw, _ in cams}
+    return plan
+
+
+def _multiband_constants(plan, mt, g, union, split, L, yuv):
+    """The multiband blend's constants: full-canvas weight pyramids,
+    reflect-filled about the union box at every level, sliced into the
+    cameras' windows (fine levels) or kept whole (coarse levels of the
+    two-level split); chroma at half resolution with one band fewer."""
+    S, bh, halo, ext, Hp, Wp = plan.S, plan.bh, plan.halo, plan.ext, plan.Hp, plan.Wp
+    B, B_uv = plan.num_bands, plan.num_bands_uv
+    ncam = plan.num_inputs
+    rois = plan.rois[:ncam]
+    ary, ary1 = union[1], union[3]
     full_seams = []
     for inp, sm in zip(mt.inputs, mt.seam_masks):
         fs = np.zeros((Hp, Wp), dtype=np.float32)
@@ -599,25 +869,29 @@ def build_sharded_plan(
     if split:
         plan.split_level = L
         plan.wp_coarse, plan.inv_bw_coarse, plan.coarse_row_idx = coarse_constants(pyrs, bw, L, B, 1)
-
-    # chroma at half resolution with B_uv = B-1 bands
-    pyrs_uv, bw_uv = pyramids([h2(fs) for fs in full_seams], B_uv, 2)
-    L_uv = max(1, L - 1) if split else B_uv
-    split_uv = split and L_uv < B_uv and halo2 >= 5 * (1 << L_uv)
-    if not split_uv:
-        L_uv = B_uv
-    plan.weight_pyrs_uv, plan.inv_band_weights_uv = fine_constants(
-        pyrs_uv, bw_uv, L_uv if split_uv else B_uv + 1, 2
-    )
-    if split_uv:
-        plan.split_level_uv = L_uv
-        plan.wp_coarse_uv, plan.inv_bw_coarse_uv, plan.coarse_row_idx_uv = coarse_constants(
-            pyrs_uv, bw_uv, L_uv, B_uv, 2
+    planes = ((1, B),)
+    if yuv:
+        pyrs_uv, bw_uv = pyramids(
+            [fs.reshape(Hp // 2, 2, Wp // 2, 2).mean(axis=(1, 3)).astype(np.float32) for fs in full_seams],
+            B_uv, 2,
         )
+        L_uv = max(1, L - 1) if split else B_uv
+        split_uv = split and L_uv < B_uv and halo // 2 >= 5 * (1 << L_uv)
+        if not split_uv:
+            L_uv = B_uv
+        plan.weight_pyrs_uv, plan.inv_band_weights_uv = fine_constants(
+            pyrs_uv, bw_uv, L_uv if split_uv else B_uv + 1, 2
+        )
+        if split_uv:
+            plan.split_level_uv = L_uv
+            plan.wp_coarse_uv, plan.inv_bw_coarse_uv, plan.coarse_row_idx_uv = coarse_constants(
+                pyrs_uv, bw_uv, L_uv, B_uv, 2
+            )
+        planes += ((2, B_uv),)
 
-    # banded matrices for every axis length the two blends touch
+    # banded matrices for every axis length the blends touch
     lengths = set()
-    for div, nb in ((1, B), (2, B_uv)):
+    for div, nb in planes:
         for l in range(nb + 1):
             lengths |= {(ext // div) >> l, (Wp // div) >> l, (Hp // div) >> l}
             for x0, iw, hmax in rois:
@@ -626,79 +900,6 @@ def build_sharded_plan(
         if nl >= 2:
             plan.down_mats[nl] = down_matrix(nl)
             plan.up_mats[nl >> 1] = up_matrix(nl >> 1)
-
-    # ---- gains on the global working grid: the single-chip Mapper's
-    # blocks, summed over the bands
-    if enable_gain and ncam > 1:
-        assert bh % stride == 0 and Wp % stride == 0
-        work = []
-        for fm in full_masks:
-            mb = (fm > 0).astype(np.float32)
-            pooled = mb.reshape(Hp // stride, stride, Wp // stride, stride).mean(axis=(1, 3))
-            work.append(pooled > 0.999)
-        gh = bh // stride
-        pairs, gm = [], []
-        N = np.zeros((ncam, ncam), dtype=np.int64)
-        for i in range(ncam):
-            N[i, i] = max(1, int(np.count_nonzero(work[i])))
-        for i in range(ncam):
-            for j in range(i + 1, ncam):
-                inter = work[i] & work[j]
-                cnt = int(inter.sum())
-                N[i, j] = N[j, i] = max(1, cnt)
-                if cnt:
-                    pairs.append((i, j))
-                    gm.append(inter.astype(np.float32))
-        plan.gain = finish_gain_plan(
-            GainPlan(
-                num_images=ncam,
-                N=tuple(tuple(int(v) for v in row) for row in N),
-                b=(BETA * N.sum(axis=1)).astype(np.float32),
-                A_static=np.diag(BETA * N.sum(axis=1)).astype(np.float32),
-                pairs=tuple(pairs),
-            )
-        )
-        if pairs:
-            stack = np.stack(gm)
-            plan.gm_i = np.stack([stack[:, s * gh : (s + 1) * gh] for s in range(S)])
-
-    # ---- union-box clamps, only when the camera union leaves canvas
-    # rows or columns uncovered
-    if arx > 0 or ary > 0 or arx1 < W or ary1 < H:
-        rows = np.zeros((S, ext), dtype=np.float32)
-        rows_uv = np.zeros((S, ext2), dtype=np.float32)
-        for s in range(S):
-            r = s * bh - halo + np.arange(ext)
-            rows[s] = ((r >= ary) & (r < ary1)).astype(np.float32)
-            r2 = s * bh2 - halo2 + np.arange(ext2)
-            rows_uv[s] = ((r2 >= ary // 2) & (r2 < ary1 // 2)).astype(np.float32)
-        plan.union_row_mask = rows
-        plan.union_row_mask_uv = rows_uv
-        c = np.arange(Wp)
-        plan.union_col_mask = ((c >= arx) & (c < arx1)).astype(np.float32)
-        c2 = np.arange(Wp // 2)
-        plan.union_col_mask_uv = ((c2 >= arx // 2) & (c2 < arx1 // 2)).astype(np.float32)
-
-    # ---- vignettes (None where the template has none: the JAX package's
-    # ones, whose multiply changes no byte)
-    Hi, Wi = in_size
-    plan.vignette = [
-        None if inp.vignette is None
-        else np.asarray(resize_bilinear(inp.vignette, Hi, Wi)).astype(np.float32)
-        for inp in mt.inputs
-    ]
-    plan.vignette_half = [
-        None if v is None
-        else v.reshape(Hi // 2, 2, Wi // 2, 2).mean(axis=(1, 3)).astype(np.float32)
-        for v in plan.vignette
-    ]
-    if stride > 1:
-        plan.pool_cols_roi = {iw: _pool_cols_matrix(iw, stride) for _, iw, _ in set(rois)}
-        if stride > 2:
-            plan.pool_cols_roi_uv = {
-                iw // 2: _pool_cols_matrix(iw // 2, stride // 2) for _, iw, _ in set(rois)
-            }
-    return plan
 
 
 # ----------------------------------------------------------- band helpers
@@ -724,17 +925,23 @@ def _src_row0(plan: ShardedPlan, i: int, div: int = 1):
 
 class ShardedMapper:
     """Stitch batches of frame sets as ``S`` horizontal bands (the JAX
-    ShardedMapper, yuv420 pipeline).
+    ShardedMapper).
 
     ``mesh`` (:func:`make_mesh`) gives the band count, the data split of
-    a batch and the device.  blend > 0 is the multiband width;
-    enable_gain: True (pairwise global gains) or False; blend_dtype:
-    "float32" or "bfloat16", None picks bfloat16 on CUDA and float32 on
-    the CPU; coarse_split: the two-level blend's split level (None: 2
-    when S > 1, the number of bands turns it off); src_windows: each
-    band preps and gathers only the camera rows its windows sample.
-    Other options raise NotImplementedError (ROADMAP queue 1 item
-    19b)."""
+    a batch and the device.  blend: > 0 multiband width, < 0 feather
+    border, 0 an averaged paste; enable_gain: False, True (pairwise
+    global gains) or "blocks"; out_format: "yuv420p" (packed band
+    buffers, see :meth:`assemble_yuv`) or "rgb" (planar f32, rgb
+    pipeline only); blend_dtype: "float32" or "bfloat16", None picks
+    bfloat16 on CUDA and float32 on the CPU; pipeline: "yuv420", "rgb",
+    or None, which picks yuv420 when the output format and every size
+    are even-friendly (sharded.py:2325-2340 of the JAX package);
+    scale_output: output (W, H) or None; frame_format: "yuv420p" or
+    "nv12", in and out; coarse_split: the two-level blend's split level
+    (None: 2 when S > 1, the number of bands turns it off); src_windows:
+    each band preps and gathers only the camera rows its windows sample.
+    in_sizes: (H, W) per camera, then per overlay input (or per camera
+    only: the overlays then take the first camera's size)."""
 
     def __init__(
         self,
@@ -742,7 +949,7 @@ class ShardedMapper:
         in_sizes,
         mesh: BandMesh,
         blend: int = 128,
-        enable_gain: bool = True,
+        enable_gain=True,
         out_format: str = "yuv420p",
         blend_dtype: str = None,
         pipeline: str = None,
@@ -751,46 +958,55 @@ class ShardedMapper:
         coarse_split=None,
         src_windows: bool = False,
     ):
-        if out_format != "yuv420p":
-            raise NotImplementedError(f"out_format={out_format!r}: {_LATER}")
-        if pipeline not in (None, "yuv420"):
-            raise NotImplementedError(f"pipeline={pipeline!r}: {_LATER}")
-        if scale_output is not None and tuple(scale_output) != tuple(mt.out_size):
-            raise NotImplementedError(f"scale_output={scale_output!r}: {_LATER}")
-        if frame_format != "yuv420p":
-            raise NotImplementedError(f"frame_format={frame_format!r}: {_LATER}")
+        if out_format not in ("yuv420p", "rgb"):
+            raise ValueError(f"unknown out_format {out_format!r}")
+        if pipeline not in (None, "rgb", "yuv420"):
+            raise ValueError(f"unknown pipeline {pipeline!r}")
+        W0, H0 = mt.out_size
+        osz = tuple(scale_output) if scale_output else (W0, H0)
+        if pipeline is None:
+            even = all(h % 2 == 0 and w % 2 == 0 for h, w in in_sizes)
+            even = even and all(v % 2 == 0 for v in (W0, H0) + osz)
+            pipeline = "yuv420" if out_format == "yuv420p" and even else "rgb"
+        if pipeline == "yuv420" and out_format != "yuv420p":
+            raise ValueError("out_format='rgb' needs pipeline='rgb'")
+        if out_format == "yuv420p" and (osz[0] % 2 or osz[1] % 2):
+            raise ValueError(f"packed YUV420P/NV12 output needs an even size, got {osz}")
         if blend_dtype is None:
             blend_dtype = "bfloat16" if mesh.device.type == "cuda" else "float32"
         host = build_sharded_plan(
             mt, in_sizes, mesh.n_space, blend=blend, enable_gain=enable_gain,
-            blend_dtype=blend_dtype, coarse_split=coarse_split, src_windows=src_windows,
+            blend_dtype=blend_dtype, pipeline=pipeline, scale_output=scale_output,
+            frame_format=frame_format, coarse_split=coarse_split, src_windows=src_windows,
         )
-        self._bind(host.to(mesh.device), mesh)
+        self._bind(host.to(mesh.device), mesh, out_format)
 
     @classmethod
-    def from_plan(cls, plan: ShardedPlan, mesh: BandMesh):
+    def from_plan(cls, plan: ShardedPlan, mesh: BandMesh, out_format: str = "yuv420p"):
         """A ShardedMapper over a plan already on ``mesh.device``
         (ShardedPlan.to, or parallel.convert.sharded_plan_from_jax)."""
+        if out_format not in ("yuv420p", "rgb") or (out_format == "rgb" and plan.pipeline != "rgb"):
+            raise ValueError(f"out_format {out_format!r} on the {plan.pipeline} pipeline")
         self = cls.__new__(cls)
-        self._bind(plan, mesh)
+        self._bind(plan, mesh, out_format)
         return self
 
-    def _bind(self, plan: ShardedPlan, mesh: BandMesh):
+    def _bind(self, plan: ShardedPlan, mesh: BandMesh, out_format: str):
         if mesh.n_space != plan.S:
             raise ValueError(f"mesh has {mesh.n_space} bands, the plan {plan.S}")
         self.plan = plan
         self.mesh = mesh
         self.device = mesh.device
+        self.out_format = out_format
         self.group = LocalBands(plan.S)
         self._rows_cache = {}
-        n = plan.num_inputs
         dev = self.device
         # per input, the source-row gather of each band's slice (packed
         # buffer rows: luma, then the chroma block rows), and the slices
         # of the vignettes; None where no slicing happens
         self._src_idx, self._vig, self._vig_half = [], [], []
-        Hi = plan.in_size[0]
-        for i in range(n):
+        halves = plan.vignette_half or [None] * len(plan.in_sizes)
+        for i, (Hi, _) in enumerate(plan.in_sizes):
             h = plan.src_h[i]
             r0 = np.atleast_1d(_src_row0(plan, i))
             if h >= Hi:
@@ -800,7 +1016,7 @@ class ShardedMapper:
                     [r0[:, None] + np.arange(h), Hi + r0[:, None] // 2 + np.arange(h // 2)], axis=1
                 )
                 self._src_idx.append(torch.from_numpy(rows.reshape(-1)).to(dev))
-            for out, v, d in ((self._vig, plan.vignette[i], 1), (self._vig_half, plan.vignette_half[i], 2)):
+            for out, v, d in ((self._vig, plan.vignette[i], 1), (self._vig_half, halves[i], 2)):
                 if v is None:
                     out.append(None)
                 elif h >= Hi:
@@ -812,6 +1028,11 @@ class ShardedMapper:
             None if plan.gm_i is None
             else torch.tensor([float(plan.gain.N[i][j]) for i, j in plan.gain.pairs] * 2, device=dev)
         )
+        self._lattice_taps = {}
+        if plan.gain_blocks is not None:
+            for i in range(plan.num_inputs):
+                for div in (1, 2) if plan.pipeline == "yuv420" else (1,):
+                    self._lattice_taps[i, div] = self._lattice_window_taps(i, div)
 
     # ------------------------------------------------------------ helpers
 
@@ -848,13 +1069,20 @@ class ShardedMapper:
         [B, k, h*3/2, Wi]: k = S per-band slices of rows [row0, row0+h)
         plus the matching chroma block rows, or k = 1 when every band
         reads the same rows."""
-        plan = self.plan
-        h = plan.src_h[i]
-        Hi = plan.in_size[0]
-        if h >= Hi:
+        h = self.plan.src_h[i]
+        if h >= self.plan.in_sizes[i][0]:
             return buf[:, None]
-        idx = self._src_idx[i]
-        return buf.index_select(1, idx).view(buf.shape[0], -1, h * 3 // 2, buf.shape[2])
+        return buf.index_select(1, self._src_idx[i]).view(buf.shape[0], -1, h * 3 // 2, buf.shape[2])
+
+    def _planes(self, blocks):
+        """Packed blocks [..., h*3/2, W] -> (Y [..., h, W], U, V
+        [..., h/2, W/2]) in the plan's frame format."""
+        h, w = blocks.shape[-2] * 2 // 3, blocks.shape[-1]
+        y, c = blocks[..., :h, :], blocks[..., h:, :]
+        if self.plan.frame_format == "nv12":
+            uv = c.unflatten(-1, (w // 2, 2))
+            return y, uv[..., 0], uv[..., 1]
+        return y, c[..., : w // 2], c[..., w // 2 :]
 
     def _prep_band_yuv(self, frames):
         """Source slice, plane split, vignette and quantize of B frame
@@ -862,10 +1090,8 @@ class ShardedMapper:
         blocks [B, k, 2, h/2, W/2], uint8."""
         ys, uvs = [], []
         for i, buf in enumerate(frames):
-            blocks = self._slice_src(buf, i)
-            h, w = blocks.shape[-2] * 2 // 3, blocks.shape[-1]
-            y = blocks[..., :h, :]
-            uv = torch.stack([blocks[..., h:, : w // 2], blocks[..., h:, w // 2 :]], dim=2)
+            y, u, v = self._planes(self._slice_src(buf, i))
+            uv = torch.stack([u, v], dim=2)
             if self._vig[i] is not None:
                 y = _quantize(torch.clamp(y.float() * self._vig[i], 0.0, 255.0))
                 uv = _quantize(
@@ -875,47 +1101,76 @@ class ShardedMapper:
             uvs.append(uv)
         return ys, uvs
 
-    def _remap_dtype(self):
-        return getattr(torch, self.plan.compute_dtype)
+    def _prep_band_rgb(self, frames):
+        """Source slice, planar RGB, vignette and quantize of B frame sets
+        (the rgb Mapper's prep per block).  Returns per input its RGB
+        blocks [B, k, 3, h, W], uint8."""
+        out = []
+        for i, buf in enumerate(frames):
+            rgb = planes_to_rgb_planar(*self._planes(self._slice_src(buf, i)))
+            if self._vig[i] is not None:
+                rgb = torch.clamp(rgb * self._vig[i][:, None], 0.0, 255.0)
+            out.append(_quantize(rgb))
+        return out
 
-    def _remap(self, parts, group, frames):
-        """One launch over every (input, band) pair: the frames axis for
-        ``frames``, else one frame.  parts: per input its source blocks
-        [B, k, C, h, W].  Returns per input its windows [B, S, C, hmax,
-        iw], views of the kernel's one output buffer."""
-        src = concat_source(parts, frames=True)
+    def _remap_dtype(self):
+        """Multiband takes its compute dtype straight out of the kernel;
+        the other blends take f32."""
+        return getattr(torch, self.plan.compute_dtype) if self.plan.blend_kind == "multiband" else torch.float32
+
+    def _remap(self, parts, groups, frames):
+        """Per size group one launch over its (input, band) pairs: the
+        frames axis for ``frames``, else one frame.  parts: per input its
+        source blocks [B, k, C, h, W].  Returns per input its windows
+        [B, S, C, hmax, iw], views of its group's output buffer."""
         S, dtype = self.plan.S, self._remap_dtype()
-        if frames:
-            out = remap_apply_frames(src, group, dtype, run=S)
-        else:
-            out = [o[None] for o in remap_apply(src[0], group, dtype, run=S)]
-        return out if S > 1 else [o[:, None] for o in out]
+        out = [None] * len(parts)
+        for idxs, group in zip(self.plan.group_idx, groups):
+            src = concat_source([parts[i] for i in idxs], frames=True)
+            if frames:
+                res = remap_apply_frames(src, group, dtype, run=S)
+            else:
+                res = [o[None] for o in remap_apply(src[0], group, dtype, run=S)]
+            for i, o in zip(idxs, res):
+                out[i] = o if S > 1 else o[:, None]
+        return out
 
     # -------------------------------------------------------------- gains
 
-    def _window_norm_grid_yuv(self, wy, wuv, i):
-        """Working-grid RGB norms of input i's windows (pooled luma and
-        pooled centred chroma), pasted into each band's interior grid:
-        [S, bh/st, Wp/st], the single-chip Mapper's global blocks."""
+    def _window_norm_grid(self, nrm, i):
+        """Input i's working-grid norms [S, hmax/st, iw/st] pasted into
+        each band's interior grid: [S, bh/st, Wp/st], the single-chip
+        Mapper's global blocks."""
+        plan = self.plan
+        x0 = plan.rois[i][0]
+        st = plan.stride
+        grid = torch.zeros((plan.S, 1, plan.ext // st, plan.Wp // st), dtype=torch.float32, device=nrm.device)
+        self._paste_add(grid, nrm[:, None], _win_oy(plan, i, div=st), x0 // st)
+        gh = plan.bh // st
+        return grid[:, 0, plan.ghalo : plan.ghalo + gh]
+
+    def _norm_rgb(self, w, i):
+        """RGB L2 norm of input i's pooled windows [S, 3, hmax, iw]."""
+        plan = self.plan
+        st = plan.stride
+        x = _pool_pow2(w.float().flatten(0, 1), st, col_mat=(plan.pool_cols_roi[plan.rois[i][1]] if st > 1 else None))
+        x = x.unflatten(0, (plan.S, 3))
+        return self._window_norm_grid(torch.sqrt(torch.sum(x * x, dim=1)), i)
+
+    def _norm_yuv(self, wy, wuv, i):
+        """RGB norm of input i's pooled luma and pooled centred chroma
+        windows (yuv_rgb_norm)."""
         plan = self.plan
         x0, iw, hmax = plan.rois[i]
         st = plan.stride
-        S = plan.S
-        y = _pool_pow2(
-            wy.float().flatten(0, 1), st,
-            col_mat=(plan.pool_cols_roi[iw] if st > 1 else None),
-        )
+        y = _pool_pow2(wy.float().flatten(0, 1), st, col_mat=(plan.pool_cols_roi[iw] if st > 1 else None))
         uvf = wuv.float().flatten(0, 1)
         if st >= 2:
             uv = _pool_pow2(uvf, st // 2, col_mat=(plan.pool_cols_roi_uv[iw // 2] if st > 2 else None))
         else:  # stride 1: nearest 2x chroma upsample onto the luma grid
             uv = uvf.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)[:, :hmax, :iw]
-        uv = uv.unflatten(0, (S, 2))
-        nrm = yuv_rgb_norm(y, uv[:, 0], uv[:, 1])
-        grid = torch.zeros((S, 1, plan.ext // st, plan.Wp // st), dtype=torch.float32, device=nrm.device)
-        self._paste_add(grid, nrm[:, None], _win_oy(plan, i, div=st), x0 // st)
-        gh = plan.bh // st
-        return grid[:, 0, plan.ghalo : plan.ghalo + gh]
+        uv = uv.unflatten(0, (plan.S, 2))
+        return self._window_norm_grid(yuv_rgb_norm(y, uv[:, 0], uv[:, 1]), i)
 
     def _solve_band_gains(self, norms):
         """The pairwise gain solve from per-band interior norm grids: each
@@ -928,17 +1183,115 @@ class ShardedMapper:
         sums = self.group.sum(torch.stack(sums, dim=1))
         return solve_pair_means(plan.gain, sums / self._cnt)
 
+    def _solve_band_block_lattice(self, norms):
+        """The blocks-gain lattice from per-band interior norm grids: each
+        band pastes its rows into the working canvas and sums its
+        per-block pair products; the band group sums those, so every band
+        solves the same lattice (sharded.py:1537 of the JAX package)."""
+        plan = self.plan
+        gbp = plan.gain_blocks
+        n, S = gbp.num_images, plan.S
+        Hc, Wc = gbp.canvas
+        gh, gw = norms[0].shape[-2:]
+        block, nby, nbx = gbp.block, gbp.nby, gbp.nbx
+        nm = torch.stack(norms, dim=1)  # [S, n, gh, gw]
+        nm = nm[..., :Wc] if gw >= Wc else torch.nn.functional.pad(nm, (0, Wc - gw))
+        canvas = nm.new_zeros((S, n, S, gh, Wc))
+        band = torch.arange(S, device=nm.device)
+        canvas[band, :, band] = nm  # band s owns working rows [s*gh, (s+1)*gh)
+        canvas = canvas.flatten(2, 3)
+        if S * gh < Hc:
+            canvas = torch.nn.functional.pad(canvas, (0, 0, 0, Hc - S * gh))
+        canvas = canvas[:, :, :Hc] * gbp.cover
+        sums = torch.einsum(
+            "siyaxb,jyaxb->syxij",
+            canvas.reshape(S, n, nby, block, nbx, block),
+            gbp.cover.reshape(n, nby, block, nbx, block),
+        )
+        off = 1.0 - torch.eye(n, dtype=torch.float32, device=nm.device)
+        I = self.group.sum(sums).reshape(nby * nbx, n, n) * off / gbp.N
+        return assemble_and_solve_lattice(gbp, I)
+
+    def _lattice_window_taps(self, i, div):
+        """Bilinear taps of the gain lattice over input i's window in
+        every band (div 1: luma or RGB grid, 2: chroma grid, where the
+        lattice scale doubles): (y0, y1, fy [S, h, 1], x0, x1, fx [1, w])."""
+        plan = self.plan
+        gbp = plan.gain_blocks
+        dev = self.device
+        x0, iw, hmax = plan.rois[i]
+        oy = np.asarray(_win_oy(plan, i, div=div))
+        row_top = np.arange(plan.S) * (plan.bh // div) - plan.halo // div + oy
+        scale = div / plan.stride
+        h, w = hmax // div, iw // div
+        rows = torch.from_numpy(row_top.astype(np.int64)).to(dev)[:, None] + torch.arange(h, device=dev)
+        ys = ((rows + 0.5) * scale) / gbp.block - 0.5
+        xs = ((x0 // div + torch.arange(w, device=dev) + 0.5) * scale) / gbp.block - 0.5
+        y0 = torch.floor(ys).long().clamp(0, gbp.nby - 1)
+        x0i = torch.floor(xs).long().clamp(0, gbp.nbx - 1)
+        y1 = (y0 + 1).clamp(max=gbp.nby - 1)
+        x1i = (x0i + 1).clamp(max=gbp.nbx - 1)
+        fy = torch.clamp(ys - y0, 0.0, 1.0)[..., None]
+        fx = torch.clamp(xs - x0i, 0.0, 1.0)[None, :]
+        return y0, y1, fy, x0i, x1i, fx
+
+    def _sample_lattice_window(self, lattice, i, div=1):
+        """Input i's gain map over its window in every band, [S, h, w]
+        (gain_blocks.sample_block_lattice at per-band row offsets)."""
+        y0, y1, fy, x0, x1, fx = self._lattice_taps[i, div]
+        g = lattice[..., i]
+        top = g[y0][..., x0] * (1 - fx) + g[y0][..., x1] * fx
+        bot = g[y1][..., x0] * (1 - fx) + g[y1][..., x1] * fx
+        return top * (1 - fy) + bot * fy
+
+    def _apply_gains(self, planes, norms, gains_in):
+        """Exposure gains on the cameras' windows of every plane.
+        planes: per plane (windows per input [S, C, h, w], div);
+        ``norms()`` gives the working-grid norms.  Returns (per plane the
+        scaled windows, gains [n]: the pairwise gains, ones for blocks
+        gains or none)."""
+        plan = self.plan
+        n = plan.num_inputs
+        gains = torch.ones(n, dtype=torch.float32, device=self.device)
+        if plan.gain_blocks is not None:
+            lattice = self._solve_band_block_lattice(norms())
+            return [
+                [w * self._sample_lattice_window(lattice, i, div)[:, None].to(w.dtype) if i < n else w
+                 for i, w in enumerate(ws)]
+                for ws, div in planes
+            ], gains
+        if plan.gm_i is not None:
+            gains = gains_in.float() if gains_in is not None else self._solve_band_gains(norms())
+            # cast the scalar, not the image: f32 * bf16 would promote
+            factors = [g.to(planes[0][0][0].dtype) for g in gains.unbind(0)]
+            return [[w * factors[i] if i < n else w for i, w in enumerate(ws)] for ws, _ in planes], gains
+        return [ws for ws, _ in planes], gains
+
     # -------------------------------------------------------------- blend
 
-    def _blend_windows(self, imgs, wins, weight_pyrs, inv_bw, B, ext_v, W_v, coarse=None):
-        """Multiband blend of per-input windows [S, c, hmax_i, iw_i] into
-        one band stack [S, c, ext_v, W_v].  wins: per input (x0, iw, hmax,
-        oy) in this plane's units.  Window pyramids paste-add into band
-        pyramids; ``coarse`` is the two-level split's context or None."""
+    def _blend_windows(self, imgs, wins, weight_pyrs, inv_bw, feather_w, B, ext_v, W_v, coarse=None):
+        """Blend per-input windows [S, c, hmax_i, iw_i] into one band stack
+        [S, c, ext_v, W_v].  wins: per input (x0, iw, hmax, oy) in this
+        plane's units.  Multiband: window pyramids paste-add into band
+        pyramids, ``coarse`` the two-level split's context or None;
+        feather: weighted paste-add; none: the average of the covering
+        windows (a window covers where any channel is non-zero)."""
         plan = self.plan
-        cdt = self._remap_dtype()
         S, c = imgs[0].shape[:2]
         dev = imgs[0].device
+        if plan.blend_kind == "feather":
+            band = torch.zeros((S, c, ext_v, W_v), dtype=imgs[0].dtype, device=dev)
+            for im, fw, (x0, _, _, oy) in zip(imgs, feather_w, wins):
+                self._paste_add(band, im * fw[:, None], oy, x0)
+            return band
+        if plan.blend_kind == "none":
+            band = torch.zeros((S, c, ext_v, W_v), dtype=torch.float32, device=dev)
+            total = torch.zeros((S, 1, ext_v, W_v), dtype=torch.float32, device=dev)
+            for im, (x0, _, _, oy) in zip(imgs, wins):
+                self._paste_add(band, im.float(), oy, x0)
+                self._paste_add(total, (im != 0).any(dim=1, keepdim=True).float(), oy, x0)
+            return band / torch.clamp(total, min=1.0)
+        cdt = self._remap_dtype()
 
         def down(z):
             hh, ww = z.shape[-2:]
@@ -1027,97 +1380,167 @@ class ShardedMapper:
             acc = up(acc) + dst[l] * inv_fine[l][:, None]
         return acc
 
+    def _coarse(self, div):
+        """The two-level split's context of the luma (div 1) or chroma
+        (div 2) blend, or None without a split."""
+        plan = self.plan
+        if div == 1 and plan.split_level >= 0:
+            return dict(L=plan.split_level, wp=plan.wp_coarse, inv=plan.inv_bw_coarse,
+                        ridx=plan.coarse_row_idx, halo=plan.halo, bh=plan.bh, S=plan.S)
+        if div == 2 and plan.split_level_uv >= 0:
+            return dict(L=plan.split_level_uv, wp=plan.wp_coarse_uv, inv=plan.inv_bw_coarse_uv,
+                        ridx=plan.coarse_row_idx_uv, halo=plan.halo // 2, bh=plan.bh // 2, S=plan.S)
+        return None
+
+    def _blend_plane(self, warped, div):
+        """Blend the cameras' windows of one plane (div 1: Y or RGB, div
+        2: U|V) into a band stack [S, c, ext/div, Wp/div] f32, clamped to
+        the camera union."""
+        plan = self.plan
+        n = plan.num_inputs
+        wins = [(x0 // div, iw // div, hmax // div, _win_oy(plan, i, div=div))
+                for i, (x0, iw, hmax) in enumerate(plan.rois[:n])]
+        uv = div == 2
+        band = self._blend_windows(
+            warped[:n], wins,
+            plan.weight_pyrs_uv if uv else plan.weight_pyrs,
+            plan.inv_band_weights_uv if uv else plan.inv_band_weights,
+            plan.feather_w_uv if uv else plan.feather_w,
+            plan.num_bands_uv if uv else plan.num_bands,
+            plan.ext // div, plan.Wp // div, coarse=self._coarse(div),
+        ).float()
+        if plan.union_row_mask is not None:
+            rows = plan.union_row_mask_uv if uv else plan.union_row_mask
+            cols = plan.union_col_mask_uv if uv else plan.union_col_mask
+            band = band * rows[:, None, :, None] * cols
+        return band
+
+    def _overlays(self, band, warped, div):
+        """Paste each overlay's window onto the band stack where its mask
+        is set (mapper.cpp:279-282), extended rows included: they feed
+        the output resize."""
+        plan = self.plan
+        n = plan.num_inputs
+        masks = plan.overlay_masks_uv if div == 2 else plan.overlay_masks
+        S, c, ext_v, W_v = band.shape
+        for k in range(plan.num_overlays):
+            ov = torch.zeros_like(band)
+            self._paste_add(ov, warped[n + k].float(), _win_oy(plan, n + k, div=div), plan.rois[n + k][0] // div)
+            m = masks[:, k][:, None]
+            band = band * (1.0 - m) + ov * m
+        return band
+
+    def _out_rows(self, band, div):
+        """The band stack's output rows [S, c, obh/div, oW/div]: the
+        interior rows, or the output resize from the extended rows
+        (INTER_LINEAR, per-band row taps, shared column taps)."""
+        plan = self.plan
+        vt = plan.resize_v_uv if div == 2 else plan.resize_v
+        if vt is None:
+            return band[:, :, plan.halo // div : plan.halo // div + plan.bh // div]
+        ht = plan.resize_h_uv if div == 2 else plan.resize_h
+        S, c, _, W_v = band.shape
+        rows0 = band.gather(2, vt["y0"][:, None, :, None].expand(S, c, -1, W_v))
+        rows1 = band.gather(2, vt["y1"][:, None, :, None].expand(S, c, -1, W_v))
+        fx, fy = ht["fx"], vt["fy"][:, None, :, None]
+        top = rows0.index_select(3, ht["x0"]) * (1 - fx) + rows0.index_select(3, ht["x1"]) * fx
+        bot = rows1.index_select(3, ht["x0"]) * (1 - fx) + rows1.index_select(3, ht["x1"]) * fx
+        return top * (1 - fy) + bot * fy
+
+    def _pack(self, y8, u8, v8):
+        """Per-band uint8 planes Y [S, obh, oW], U, V [S, obh/2, oW/2] ->
+        the packed band buffers [S*obh*3/2, oW] in the frame format."""
+        S, obh, oW = y8.shape
+        if self.plan.frame_format == "nv12":
+            c = torch.stack([u8, v8], dim=-1).reshape(S, obh // 2, oW)
+        else:
+            c = torch.cat([u8, v8], dim=-1)
+        return torch.cat([y8, c], dim=1).reshape(S * obh * 3 // 2, oW)
+
     # ----------------------------------------------------------- post-warp
 
     def _postwarp_band_yuv(self, warped_y, warped_uv, gains_in):
         """Everything after the remap of one frame set: chroma centring,
-        gains, the two plane blends, union clamp, packed YUV420P band
-        outputs.  warped_*: per input [S, C, h, w].  Returns (out uint8
-        [S*bh*3/2, Wp], gains [n])."""
-        plan = self.plan
-        n = plan.num_inputs
-        ext, Wp, halo, bh = plan.ext, plan.Wp, plan.halo, plan.bh
-        halo2, bh2 = halo // 2, bh // 2
+        gains, the two plane blends, union clamp, overlays, output rows,
+        packed band outputs.  warped_*: per input [S, C, h, w].  Returns
+        (out uint8 [S*obh*3/2, oW], gains [n])."""
+        n = self.plan.num_inputs
         warped_uv = [w - 128.0 for w in warped_uv]
+        (warped_y, warped_uv), gains = self._apply_gains(
+            [(warped_y, 1), (warped_uv, 2)],
+            lambda: [self._norm_yuv(warped_y[i], warped_uv[i], i) for i in range(n)],
+            gains_in,
+        )
+        band_y = self._overlays(self._blend_plane(warped_y, 1), warped_y, 1)
+        band_uv = self._overlays(self._blend_plane(warped_uv, 2), warped_uv, 2)
+        out_y = self._out_rows(band_y, 1)
+        out_uv = self._out_rows(band_uv, 2) + 128.0
+        return self._pack(_quantize(out_y[:, 0]), _quantize(out_uv[:, 0]), _quantize(out_uv[:, 1])), gains
 
-        gains = torch.ones(n, dtype=torch.float32, device=self.device)
-        if plan.gm_i is not None:
-            if gains_in is None:
-                norms = [self._window_norm_grid_yuv(warped_y[i], warped_uv[i], i) for i in range(n)]
-                gains = self._solve_band_gains(norms)
-            else:
-                gains = gains_in.float()
-            # cast the scalar, not the image: f32 * bf16 would promote
-            factors = [g.to(warped_y[0].dtype) for g in gains.unbind(0)]
-            warped_y = [w * f for w, f in zip(warped_y, factors)]
-            warped_uv = [w * f for w, f in zip(warped_uv, factors)]
-
-        wins = [plan.rois[i] + (_win_oy(plan, i),) for i in range(n)]
-        wins_uv = [
-            (plan.rois[i][0] // 2, plan.rois[i][1] // 2, plan.rois[i][2] // 2, _win_oy(plan, i, div=2))
-            for i in range(n)
-        ]
-        coarse_y = coarse_uv = None
-        if plan.split_level >= 0:
-            coarse_y = dict(L=plan.split_level, wp=plan.wp_coarse, inv=plan.inv_bw_coarse,
-                            ridx=plan.coarse_row_idx, halo=halo, bh=bh, S=plan.S)
-        if plan.split_level_uv >= 0:
-            coarse_uv = dict(L=plan.split_level_uv, wp=plan.wp_coarse_uv, inv=plan.inv_bw_coarse_uv,
-                             ridx=plan.coarse_row_idx_uv, halo=halo2, bh=bh2, S=plan.S)
-        band_y = self._blend_windows(
-            warped_y, wins, plan.weight_pyrs, plan.inv_band_weights,
-            plan.num_bands, ext, Wp, coarse=coarse_y,
-        ).float()
-        band_uv = self._blend_windows(
-            warped_uv, wins_uv, plan.weight_pyrs_uv, plan.inv_band_weights_uv,
-            plan.num_bands_uv, ext // 2, Wp // 2, coarse=coarse_uv,
-        ).float()
-        if plan.union_row_mask is not None:
-            band_y = band_y * plan.union_row_mask[:, None, :, None] * plan.union_col_mask
-            band_uv = band_uv * plan.union_row_mask_uv[:, None, :, None] * plan.union_col_mask_uv
-
-        y8 = _quantize(band_y[:, 0, halo : halo + bh])
-        uv8 = _quantize(band_uv[:, :, halo2 : halo2 + bh2] + 128.0)
-        out = torch.cat([y8, torch.cat([uv8[:, 0], uv8[:, 1]], dim=-1)], dim=-2)
-        return out.reshape(plan.S * bh * 3 // 2, Wp), gains
+    def _postwarp_band_rgb(self, warped, gains_in):
+        """The rgb band path after the remap of one frame set: gains,
+        blend, union clamp, overlays, clip, output rows; packed band
+        outputs [S*obh*3/2, oW] uint8 (rgb_planar_to_planes), or planar
+        RGB f32 [3, S*obh, oW] for ``out_format="rgb"``.  warped: per
+        input [S, 3, h, w].  Returns (out, gains [n])."""
+        n = self.plan.num_inputs
+        (warped,), gains = self._apply_gains(
+            [(warped, 1)], lambda: [self._norm_rgb(warped[i], i) for i in range(n)], gains_in
+        )
+        band = self._overlays(self._blend_plane(warped, 1), warped, 1)
+        out = self._out_rows(torch.clamp(band, 0.0, 255.0), 1)
+        if self.out_format == "rgb":
+            return out.movedim(0, 1).flatten(1, 2), gains
+        return self._pack(*rgb_planar_to_planes(out)), gains
 
     # ------------------------------------------------------------ forward
 
     def _stitch_bands(self, frames, gains_in):
-        """B frame sets (per input [B, Hi*3/2, Wi]): one remap launch per
-        plane for all of them (the frames axis when B > 1), post-warp
-        frame by frame.  Returns (out [B, S*bh*3/2, Wp], gains [B, n])."""
+        """B frame sets (per input [B, Hi*3/2, Wi]).  yuv420: one remap
+        launch per plane per size group for all of them (the frames axis
+        when B > 1), post-warp frame by frame; rgb: frame by frame, one
+        NC=3 launch per size group each (as the JAX package's rgb band
+        path loops frames).  Returns (out [B, ...], gains [B, n])."""
         nb = frames[0].shape[0]
-        ys, uvs = self._prep_band_yuv(frames)
-        wy = self._remap(ys, self.plan.remap, nb > 1)
-        wuv = self._remap(uvs, self.plan.remap_uv, nb > 1)
         outs, gains = [], []
-        for b in range(nb):
-            o, g = self._postwarp_band_yuv(
-                [w[b] for w in wy],
-                [w[b] for w in wuv],
-                None if gains_in is None else gains_in[b],
-            )
-            outs.append(o)
-            gains.append(g)
+        if self.plan.pipeline == "yuv420":
+            ys, uvs = self._prep_band_yuv(frames)
+            wy = self._remap(ys, self.plan.remap_groups, nb > 1)
+            wuv = self._remap(uvs, self.plan.remap_uv_groups, nb > 1)
+            for b in range(nb):
+                o, g = self._postwarp_band_yuv(
+                    [w[b] for w in wy], [w[b] for w in wuv], None if gains_in is None else gains_in[b]
+                )
+                outs.append(o)
+                gains.append(g)
+        else:
+            for b in range(nb):
+                parts = self._prep_band_rgb([f[b : b + 1] for f in frames])
+                warped = self._remap(parts, self.plan.remap_groups, False)
+                o, g = self._postwarp_band_rgb([w[0] for w in warped], None if gains_in is None else gains_in[b])
+                outs.append(o)
+                gains.append(g)
         return torch.stack(outs), torch.stack(gains)
 
     def _frames_to_device(self, frames):
-        n = self.plan.num_inputs
-        Hi, Wi = self.plan.in_size
-        want = (Hi * 3 // 2, Wi)
+        sizes = self.plan.in_sizes
+        n = len(sizes)
         if not isinstance(frames, (list, tuple)):
             f = frames if isinstance(frames, torch.Tensor) else torch.from_numpy(np.array(frames))
+            if len(set(sizes)) != 1:
+                raise ValueError("a stacked input needs equal camera sizes; pass a per-input list")
+            Hi, Wi = sizes[0]
             if f.dim() != 4 or f.shape[1] != n:
-                raise ValueError(f"want a stacked uint8 [B, {n}, {want[0]}, {want[1]}], got {tuple(f.shape)}")
+                raise ValueError(f"want a stacked uint8 [B, {n}, {Hi * 3 // 2}, {Wi}], got {tuple(f.shape)}")
             frames = f.unbind(1)
         if len(frames) != n:
-            raise ValueError(f"{len(frames)} frame stacks for {n} inputs")
+            raise ValueError(f"{len(frames)} frame stacks for {n} inputs and overlay inputs")
         bufs = []
-        for f in frames:
+        for f, (Hi, Wi) in zip(frames, sizes):
             if not isinstance(f, torch.Tensor):
                 f = torch.from_numpy(np.array(f))
             f = f.to(self.device)
+            want = (Hi * 3 // 2, Wi)
             if f.dtype != torch.uint8 or f.dim() != 3 or tuple(f.shape[1:]) != want:
                 raise ValueError(f"want uint8 [B, {want[0]}, {want[1]}], got {f.dtype} {tuple(f.shape)}")
             bufs.append(f)
@@ -1126,12 +1549,14 @@ class ShardedMapper:
         return bufs
 
     def stitch_batch(self, frames, gains=None):
-        """frames: per input a uint8 [B, Hi*3/2, Wi] stack (B divisible by
-        the mesh's data size), or one stacked [B, n, Hi*3/2, Wi].
+        """frames: per input (then per overlay input) a uint8
+        [B, Hi*3/2, Wi] stack (B divisible by the mesh's data size), or
+        one stacked [B, n, Hi*3/2, Wi] when every size is equal.
         ``gains`` ([B, n] f32) replaces the solved pairwise gains.
-        Returns (out uint8 [B, S*bh*3/2, Wp]: per band packed YUV420P
-        buffers stacked along rows, see :meth:`assemble_yuv`; gains f32
-        [B, n]) on the mapper's device."""
+        Returns (out, gains f32 [B, n]) on the mapper's device; out is
+        uint8 [B, S*obh*3/2, oW] (per band packed YUV420P or NV12
+        buffers stacked along rows, see :meth:`assemble_yuv`), or f32
+        [B, 3, S*obh, oW] for ``out_format="rgb"``."""
         bufs = self._frames_to_device(frames)
         B = bufs[0].shape[0]
         nd = self.mesh.n_data
@@ -1151,12 +1576,16 @@ class ShardedMapper:
         return torch.cat(outs), torch.cat(gs)
 
     def assemble_yuv(self, out_b):
-        """One frame's band stack [S*bh*3/2, Wp] -> the packed YUV420P
-        canvas [H*3/2, W]."""
-        W, H = self.plan.canvas_size
-        S, bh, Wp = self.plan.S, self.plan.bh, self.plan.Wp
-        bands = torch.as_tensor(out_b).reshape(S, bh * 3 // 2, Wp)
-        y = bands[:, :bh].reshape(S * bh, Wp)[:H, :W]
-        u = bands[:, bh:, : Wp // 2].reshape(S * bh // 2, Wp // 2)[: H // 2, : W // 2]
-        v = bands[:, bh:, Wp // 2 :].reshape(S * bh // 2, Wp // 2)[: H // 2, : W // 2]
-        return merge_yuv420p(y, u, v)
+        """One frame's band stack [S*obh*3/2, oW] -> the packed canvas
+        [oh*3/2, ow] in the frame format."""
+        if self.out_format != "yuv420p":
+            raise ValueError("assemble_yuv needs out_format='yuv420p'")
+        ow, oh = self.plan.out_size
+        S, obh, oW = self.plan.S, self.plan.obh, self.plan.oW
+        bands = torch.as_tensor(out_b).reshape(S, obh * 3 // 2, oW)
+        y = bands[:, :obh].reshape(S * obh, oW)[:oh, :ow]
+        c = bands[:, obh:].reshape(S * obh // 2, oW)[: oh // 2]
+        if self.plan.frame_format == "nv12":
+            uv = c.unflatten(-1, (oW // 2, 2))[:, : ow // 2]
+            return merge_nv12(y, uv[..., 0], uv[..., 1])
+        return merge_yuv420p(y, c[:, : ow // 2], c[:, oW // 2 : oW // 2 + ow // 2])

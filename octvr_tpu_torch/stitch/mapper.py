@@ -26,8 +26,6 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from octvr_tpu.ops.resize import resize_bilinear
-from octvr_tpu.template.compiler import MapperTemplate
 
 from ..ops.color import (
     merge_nv12,
@@ -39,7 +37,8 @@ from ..ops.color import (
 )
 from ..ops.cuda_remap import remap_apply, remap_apply_frames
 from ..ops.remap import remap_group, remap_plan
-from ..ops.resize import resize_apply, resize_plan
+from ..ops.resize import resize_apply, resize_bilinear_host, resize_plan
+from ..template.compiler import MapperTemplate
 from ..utils.device import resolve_device, tree_to
 from .blenders import (
     build_feather_plan,
@@ -185,7 +184,7 @@ def _input_plan(inp, in_h, in_w, stride, yuv, is_overlay):
 
     vig = None
     if inp.vignette is not None:
-        vig = np.asarray(resize_bilinear(inp.vignette, in_h, in_w)).astype(
+        vig = np.asarray(resize_bilinear_host(inp.vignette, in_h, in_w)).astype(
             np.float32
         )
     ip = _InputPlan(
@@ -371,7 +370,7 @@ def _paste(canvas, img, roi, mask):
 class Mapper:
     """The stitcher on a torch device.
 
-    ``device`` is required ("cuda", "cuda:N" or "cpu"); "cuda" without a
+    ``device``: "cuda" (the default), "cuda:N" or "cpu"; "cuda" without a
     card raises.  blend: > 0 multiband blend width, 0 none (a paste), < 0
     feather border.  enable_gain: False, True (global pairwise gains) or
     "blocks" (per-block gain maps).  scale_output: output (W, H), or None
@@ -393,7 +392,7 @@ class Mapper:
         blend_dtype: str = None,
         pipeline: str = "auto",
         *,
-        device,
+        device="cuda",
     ):
         dev = resolve_device(device)
         on_cuda = dev.type == "cuda"
@@ -431,7 +430,7 @@ class Mapper:
         self._bind(host.to(dev), dev, frame_format)
 
     @classmethod
-    def from_plan(cls, plan: StitchPlan, device, frame_format: str = "yuv420p"):
+    def from_plan(cls, plan: StitchPlan, device="cuda", frame_format: str = "yuv420p"):
         """Mapper over a plan already on ``device`` (StitchPlan.to, or
         stitch.convert.plan_from_jax)."""
         self = cls.__new__(cls)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from octvr_tpu.ops.pallas_remap import merge_remap_plans, pack_pairs, pallas_remap_apply_batched
+from octvr_tpu.ops.remap import pack_rgb
 from octvr_tpu_torch.ops import cuda_remap
 from octvr_tpu_torch.ops.remap import (
     concat_source,
@@ -45,11 +46,13 @@ def _slice(planes):
     return [planes, planes[..., LO : LO + H_B, :]]
 
 
-@pytest.mark.parametrize("paired,nc", [(False, 1), (True, 1), (True, 2)])
+@pytest.mark.parametrize("paired,nc", [(False, 1), (True, 1), (True, 2), (False, 3)])
 def test_concat_matches_pallas_concat_mode(paired, nc):
     """The plain concat gather against the Pallas kernel's concat-source
-    launch (interpret mode): unpaired nc=1 as in the JAX test, and the
-    paired nc=1 (Y) and nc=2 (U|V) launches of the sharded yuv420 path."""
+    launch (interpret mode): unpaired nc=1 as in the JAX test, the paired
+    nc=1 (Y) and nc=2 (U|V) launches of the sharded yuv420 path, and the
+    nc=3 launch of its rgb path, each block packed by ``pack_rgb`` as
+    the JAX band stitch packs it (parallel/sharded.py:1873)."""
     a, _, b_s = concat_maps()
     planes = _planes(9 + nc, nc)
     q = jnp.asarray(planes.numpy().astype(np.int32))
@@ -58,6 +61,8 @@ def test_concat_matches_pallas_concat_mode(paired, nc):
     srcs = [q, q[:, LO : LO + H_B]]
     if paired:
         srcs = [pack_pairs(list(s)) for s in srcs]
+    elif nc == 3:
+        srcs = [pack_rgb(s.astype(jnp.float32)).reshape(s.shape[1:]) for s in srcs]
     else:
         srcs = [s[0] for s in srcs]
     ref = pallas_remap_apply_batched(srcs, bp, interpret=True, nc=nc, paired=paired)

@@ -1,18 +1,19 @@
 """Port tests that need an NVIDIA card: the CUDA remap kernel (NC=1, 2
 and 3, one frame or a frames axis, stacked or concat sources) against
-its plain torch version, and the port's Mapper and ShardedMapper on the
-card against the port on the CPU.  They carry the ``cuda`` marker and
-skip without a card.
+its plain torch version, and the port's Mapper and ShardedMapper (every
+option group) on the card against the port on the CPU.  They carry the
+``cuda`` marker and skip without a card.
 This file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_on_card.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from octvr_tpu.template import compile_rig
 from octvr_tpu_torch.ops import cuda_remap
 from octvr_tpu_torch.ops.remap import (
     concat_source,
@@ -22,6 +23,7 @@ from octvr_tpu_torch.ops.remap import (
 )
 from octvr_tpu_torch.parallel import ShardedMapper, make_mesh
 from octvr_tpu_torch.stitch import FastMapper, Mapper
+from octvr_tpu_torch.template import compile_rig
 from remap_fixtures import H_B, IN_H, IN_W, LO, arc_maps, concat_maps, edge_maps
 from rigs import two_fisheye_rig
 
@@ -144,7 +146,7 @@ def _concat_case(device, nc, seed, frames=None):
     return group, src
 
 
-@pytest.mark.parametrize("nc", [1, 2])
+@pytest.mark.parametrize("nc", [1, 2, 3])
 def test_concat_kernel_matches_plain_on_card(cuda_device, nc):
     """Kernel 6: f32 within 1e-3 of the plain version, the bf16 store
     equal to the cast f32 store, one concat launch counted per call."""
@@ -160,7 +162,7 @@ def test_concat_kernel_matches_plain_on_card(cuda_device, nc):
         assert torch.equal(b, a.to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("nc", [1, 2])
+@pytest.mark.parametrize("nc", [1, 2, 3])
 def test_concat_frames_axis_equals_one_frame_on_card(cuda_device, nc):
     """Kernel 6 with the frames axis: one launch over B=3 frames of
     concat sources equals three one-frame launches bit for bit."""
@@ -196,4 +198,52 @@ def test_sharded_on_card_matches_cpu(cuda_device, src_windows):
     assert cuda_remap.COUNTS == {f"{concat}nc1_f32": 1, f"{concat}nc2_f32": 1}
     d = (sm.assemble_yuv(out[0]).cpu().float() - sm.assemble_yuv(out_cpu[0]).float()).abs()
     assert d[:256].mean() < 0.2 and d[256:].mean() < 0.2
+    assert (g.cpu() - g_cpu).abs().max().item() < 1e-3
+
+
+SHARDED_OPTIONS = {
+    # name: (mixed sizes + an overlay, options, the launches of one stitch)
+    "rgb_srcwin": (False, {"pipeline": "rgb", "src_windows": True}, {"concat_nc3_f32": 1}),
+    "rgb_feather_mixed_overlay_rgb_out": (
+        True, {"pipeline": "rgb", "blend": -8, "out_format": "rgb"}, {"nc3_f32": 2},
+    ),
+    "yuv420_blocks_paste_nv12_scale": (
+        False, {"blend": 0, "enable_gain": "blocks", "frame_format": "nv12", "scale_output": (256, 128)},
+        {"nc1_f32": 1, "nc2_f32": 1},
+    ),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHARDED_OPTIONS))
+def test_sharded_options_on_card_match_cpu(cuda_device, name):
+    """The band-sharded stitcher's options at S=4 on the card (kernel)
+    vs on the CPU (plain version), both f32, on the 512x256 rig of two
+    1200^2 fisheyes (mixed: the second at 1000^2, and the first again as
+    an overlay input): Y/UV (or RGB) mean < 0.2, gains 1e-3; each size
+    group one launch, kernel 6 (concat) where source windows slice."""
+    mixed, kw, launches = SHARDED_OPTIONS[name]
+    rig = two_fisheye_rig()
+    if mixed:
+        rig["inputs"][1]["options"]["width"] = rig["inputs"][1]["options"]["height"] = 1000
+    mt = compile_rig(rig, 512, 256)
+    mt.create_masks()
+    sizes = [(s["options"]["height"], s["options"]["width"]) for s in rig["inputs"]]
+    if mixed:
+        mt = dataclasses.replace(mt, overlay_inputs=[mt.inputs[0]])
+        sizes.append(sizes[0])
+    rng = np.random.default_rng(3)
+    batch = [torch.from_numpy(rng.integers(0, 256, (1, h * 3 // 2, w), dtype=np.uint8)) for h, w in sizes]
+    kw = {"blend": 16, "enable_gain": True, "blend_dtype": "float32", **kw}
+    out_cpu, g_cpu = ShardedMapper(mt, sizes, make_mesh(1, 4, device="cpu"), **kw).stitch_batch(batch)
+    sm = ShardedMapper(mt, sizes, make_mesh(1, 4, device=cuda_device), **kw)
+    cuda_remap.reset_counts()
+    out, g = sm.stitch_batch(batch)
+    torch.cuda.synchronize()
+    assert cuda_remap.COUNTS == launches
+    if kw.get("out_format") == "rgb":
+        assert (out.cpu() - out_cpu).abs().mean() < 0.2
+    else:
+        a, b = sm.assemble_yuv(out[0]).cpu().float(), sm.assemble_yuv(out_cpu[0]).float()
+        oh = a.shape[0] * 2 // 3
+        assert (a - b)[:oh].abs().mean() < 0.2 and (a - b)[oh:].abs().mean() < 0.2
     assert (g.cpu() - g_cpu).abs().max().item() < 1e-3

@@ -1,14 +1,17 @@
 """The port's band-sharded plan (octvr_tpu_torch/parallel/sharded.py)
-against the JAX package's ``build_sharded_plan``, field by field, and
-the per-shard remap taps against the JAX plain gather; also
-``sharded_plan_from_jax``, the options that still raise, and the
-port's freedom from JAX.
+against the JAX package's ``build_sharded_plan``, field by field, for
+every plan kind (both pipelines, multiband, feather, paste, blocks
+gains, overlays, scale_output, NV12, mixed sizes), and the per-shard
+remap taps against the JAX plain gather; also ``sharded_plan_from_jax``,
+the options that raise, and the port's freedom from the JAX package.
 
 The plan builders are the same numpy arithmetic, so every field is held
 with ``np.array_equal``; no JIT runs here."""
 
+import ast
 import subprocess
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,19 +24,28 @@ from octvr_tpu.parallel.sharded import build_sharded_plan as jax_build_sharded_p
 from octvr_tpu_torch.ops.remap import remap_apply_reference, remap_group
 from octvr_tpu_torch.parallel import ShardedMapper, build_sharded_plan, make_mesh
 from octvr_tpu_torch.parallel.convert import sharded_plan_from_jax
+from octvr_tpu_torch.stitch import FastMapper, Mapper
 from octvr_tpu_torch.parallel.sharded import _Geom, _union_box, _window_maps
-from sharded_fixtures import fisheye_rig, six_cam_small
+from sharded_fixtures import fisheye_rig, mixed_rig, nv12_frames, six_cam_small, with_overlay
 
 torch.set_num_threads(2)
 
-# (rig, S, options): the split on (blend 32 -> 4 bands, split level 2),
-# the split off (coarse_split = the band count), S=1 (halo 0), and the
-# six-camera rig with source windows (kernel 6's concat layout)
+# (rig, S, options; yuv420 and blend 32 unless given): the split on
+# (blend 32 -> 4 bands, split level 2), the split off (coarse_split = the
+# band count), S=1 (halo 0), the six-camera rig with source windows
+# (kernel 6's concat layout), and every other plan kind
 CONFIGS = {
     "fisheye_s4_split": ("fisheye", 4, {}),
     "fisheye_s4_nosplit": ("fisheye", 4, {"coarse_split": 4}),
     "fisheye_s1": ("fisheye", 1, {}),
     "sixcam_s4_srcwin": ("sixcam", 4, {"src_windows": True}),
+    "fisheye_s4_rgb": ("fisheye", 4, {"pipeline": "rgb"}),
+    "fisheye_s4_feather": ("fisheye", 4, {"blend": -8}),
+    "fisheye_s4_paste_rgb": ("fisheye", 4, {"blend": 0, "pipeline": "rgb"}),
+    "fisheye_s4_blocks": ("fisheye", 4, {"enable_gain": "blocks"}),
+    "fisheye_s4_scale_nv12": ("fisheye", 4, {"scale_output": (192, 96), "frame_format": "nv12"}),
+    "overlay_s4": ("overlay", 4, {}),
+    "mixed_s4_srcwin_rgb": ("mixed", 4, {"src_windows": True, "pipeline": "rgb"}),
 }
 
 _SAME = (
@@ -45,13 +57,17 @@ _SAME = (
     "wp_coarse_uv", "inv_bw_coarse_uv", "gm_i", "union_row_mask",
     "union_row_mask_uv", "union_col_mask", "union_col_mask_uv",
     "pool_cols_roi", "pool_cols_roi_uv", "down_mats",
-    "up_mats",
+    "up_mats", "num_overlays", "blend_kind", "pipeline", "frame_format",
+    "group_idx", "out_size", "obh", "oW", "compute_dtype", "feather_w",
+    "feather_w_uv", "overlay_masks", "overlay_masks_uv", "resize_v",
+    "resize_h", "resize_v_uv", "resize_h_uv",
 )
 
 
 @pytest.fixture(scope="module")
 def rigs():
-    return {"fisheye": fisheye_rig(), "sixcam": six_cam_small()}
+    fisheye = fisheye_rig()
+    return {"fisheye": fisheye, "sixcam": six_cam_small(), "mixed": mixed_rig(), "overlay": with_overlay(*fisheye)}
 
 
 def _equal(a, b):
@@ -64,12 +80,11 @@ def _equal(a, b):
     return np.array_equal(np.asarray(a), np.asarray(b))
 
 
-def _plans(rigs, name):
+def _plans(rigs, name, **extra):
     rig, S, kw = CONFIGS[name]
     mt, sizes, _ = rigs[rig]
-    port = build_sharded_plan(mt, sizes, S, blend=32, **kw)
-    ref = jax_build_sharded_plan(mt, sizes, S, blend=32, pipeline="yuv420", **kw)
-    return mt, sizes, port, ref
+    kw = {"blend": 32, "pipeline": "yuv420", **kw, **extra}
+    return mt, sizes, build_sharded_plan(mt, sizes, S, **kw), jax_build_sharded_plan(mt, sizes, S, **kw)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -80,12 +95,18 @@ def test_plan_fields_equal_jax(rigs, name):
     assert port.gain.N == ref.N and port.gain.pairs == ref.pairs
     assert np.array_equal(port.gain.b, ref.gain_b)
     assert np.array_equal(port.gain.A_static, ref.gain_A_static)
+    assert (port.gain_blocks is None) == (ref.gain_blocks is None)
+    if port.gain_blocks is not None:
+        for f in ("num_images", "block", "nby", "nbx", "canvas", "rois", "cover", "N", "A_static", "b"):
+            assert _equal(getattr(port.gain_blocks, f), getattr(ref.gain_blocks, f)), f
     # the JAX plan keeps ones where a camera has no vignette
-    for v, rv in zip(port.vignette + port.vignette_half, ref.vignette + ref.vignette_half):
+    halves = (port.vignette_half or [], ref.vignette_half or [])
+    for v, rv in zip(port.vignette + halves[0], ref.vignette + halves[1]):
         assert np.array_equal(rv, np.ones_like(rv) if v is None else v)
-    concat = any(rp.concat_heights for rp in ref.remap_groups)
-    assert port.sliced == concat
-    assert port.to("cpu").remap.concat == concat
+    assert (port.vignette_half is None) == (ref.vignette_half is None)
+    concat = [bool(rp.concat_heights) for rp in ref.remap_groups]
+    assert port.sliced == any(concat)
+    assert [g.concat for g in port.to("cpu").remap_groups] == concat
     if name == "sixcam_s4_srcwin":
         # side cameras sliced, poles whole: kernel 6 takes the launch
         assert concat and any(h < 240 for h in port.src_h), port.src_h
@@ -111,8 +132,8 @@ def test_sliced_taps_equal_jax_gather_on_unsliced_source(rigs):
     worst, sliced = 0.0, 0
     for div, plans in ((1, plan.remap), (2, plan.remap_uv)):
         band_maps = _window_maps(mt, g, plan.Hp, plan.Wp, div)
-        H, W = plan.in_size[0] // div, plan.in_size[1] // div
         for i in range(plan.num_inputs):
+            H, W = plan.in_sizes[i][0] // div, plan.in_sizes[i][1] // div
             img = rng.integers(0, 256, (1, H, W), dtype=np.uint8)
             h = plan.src_h[i] // div
             for s in range(plan.S):
@@ -131,20 +152,26 @@ def test_sliced_taps_equal_jax_gather_on_unsliced_source(rigs):
 
 @pytest.mark.parametrize(
     "name,dtype",
-    [("fisheye_s4_split", "float32"), ("fisheye_s4_split", "bfloat16"), ("sixcam_s4_srcwin", "float32")],
+    [("fisheye_s4_split", "float32"), ("fisheye_s4_split", "bfloat16"), ("sixcam_s4_srcwin", "float32"),
+     ("fisheye_s4_rgb", "bfloat16"), ("fisheye_s4_feather", "float32"), ("fisheye_s4_paste_rgb", "float32"),
+     ("fisheye_s4_blocks", "float32"), ("fisheye_s4_scale_nv12", "float32"), ("overlay_s4", "float32"),
+     ("mixed_s4_srcwin_rgb", "float32")],
 )
 def test_plan_from_jax_stitches_like_port_plan(rigs, name, dtype):
     """A plan carried across from the JAX package stitches bit for bit
-    like the port's own; bf16 leaves (ml_dtypes arrays) arrive bit for
-    bit."""
+    like the port's own, for every plan kind; bf16 leaves (ml_dtypes
+    arrays) arrive bit for bit."""
     rig, S, kw = CONFIGS[name]
     mt, sizes, frames = rigs[rig]
-    port = build_sharded_plan(mt, sizes, S, blend=32, blend_dtype=dtype, **kw).to("cpu")
-    ref = jax_build_sharded_plan(mt, sizes, S, blend=32, pipeline="yuv420", blend_dtype=dtype, **kw)
+    _, _, port, ref = _plans(rigs, name, blend_dtype=dtype)
+    port = port.to("cpu")
     carried = sharded_plan_from_jax(ref, mt, sizes, "cpu")
-    assert carried.weight_pyrs[0][0].dtype == getattr(torch, dtype)
-    assert _equal_tensors(carried.weight_pyrs, port.weight_pyrs)
-    assert _equal_tensors(carried.inv_bw_coarse_uv, port.inv_bw_coarse_uv)
+    if port.blend_kind == "multiband":
+        assert carried.weight_pyrs[0][0].dtype == getattr(torch, dtype)
+    for f in ("weight_pyrs", "inv_bw_coarse_uv", "feather_w", "overlay_masks"):
+        assert _equal_tensors(getattr(carried, f), getattr(port, f)), f
+    if kw.get("frame_format") == "nv12":
+        frames = nv12_frames(frames)
     frames = [torch.from_numpy(f[None].copy()) for f in frames]
     mesh = make_mesh(1, S, device="cpu")
     a = ShardedMapper.from_plan(port, mesh).stitch_batch(frames)
@@ -159,25 +186,29 @@ def _equal_tensors(a, b):
 
 
 def test_unported_options_raise(rigs):
+    """Every option of the JAX ShardedMapper is ported: what is left to
+    raise are values no ShardedMapper takes, each a ValueError."""
     mt, sizes, _ = rigs["fisheye"]
     mesh = make_mesh(1, 2, device="cpu")
     for kw in (
-        {"pipeline": "rgb"},
-        {"out_format": "rgb"},
-        {"blend": 0},
-        {"blend": -8},
-        {"enable_gain": "blocks"},
-        {"scale_output": (128, 64)},
-        {"frame_format": "nv12"},
+        {"pipeline": "rgba"},
+        {"out_format": "rgba"},
+        {"out_format": "rgb", "pipeline": "yuv420"},
+        {"enable_gain": "local"},
+        {"frame_format": "uyvy"},
+        {"blend_dtype": "float16"},
+        {"scale_output": (127, 64)},
     ):
-        with pytest.raises(NotImplementedError, match="19b"):
+        with pytest.raises(ValueError):
             ShardedMapper(mt, sizes, mesh, **kw)
-    with pytest.raises(NotImplementedError, match="mixed camera sizes"):
-        ShardedMapper(mt, [(256, 256), (240, 240)], mesh)
-    import dataclasses
-
-    with pytest.raises(NotImplementedError, match="overlay"):
-        ShardedMapper(dataclasses.replace(mt, overlay_inputs=[mt.inputs[0]]), sizes, mesh)
+    with pytest.raises(ValueError, match="sizes"):
+        ShardedMapper(mt, [(256, 256)] * 3, mesh)
+    with pytest.raises(ValueError, match="even"):
+        ShardedMapper(mt, [(256, 256), (241, 241)], mesh)
+    sm = ShardedMapper(mt, [(256, 256), (240, 240)], mesh, pipeline="rgb", blend=-8)
+    assert sm.plan.group_idx == ((0,), (1,)) and sm.plan.remap is None
+    with pytest.raises(ValueError, match="stacked"):
+        sm.stitch_batch(torch.zeros((1, 2, 384, 256), dtype=torch.uint8))
 
 
 def test_cuda_without_card_raises():
@@ -187,6 +218,56 @@ def test_cuda_without_card_raises():
         make_mesh(1, 4, device="cuda")
 
 
+def test_entry_points_default_to_the_card(rigs):
+    """Mapper, FastMapper and make_mesh run on the card unless asked for
+    the CPU, and ShardedMapper takes the mesh's device; without a card
+    the default raises, with no fallback to the CPU."""
+    mt, sizes, _ = rigs["fisheye"]
+    makers = (
+        lambda: Mapper(mt, sizes, blend=16),
+        lambda: FastMapper(mt, sizes),
+        lambda: make_mesh(1, 2),
+    )
+    for make in makers:
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="is_available"):
+                make()
+    sm = ShardedMapper(mt, sizes, make_mesh(1, 2, device="cpu"), blend=16)
+    assert sm.device.type == "cpu" and sm.plan.weight_pyrs[0][0].device.type == "cpu"
+
+
+ROOT = Path(__file__).resolve().parents[1]
+_BANNED = ("octvr_tpu", "bench", "jax", "jaxlib", "ml_dtypes")
+
+
+def _imported(path):
+    """Top-level package names a file imports (relative imports aside)."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            yield node.module.split(".")[0]
+
+
 def test_port_imports_no_jax():
-    code = "import sys, octvr_tpu_torch.parallel.convert; assert 'jax' not in sys.modules, 'jax imported'"
-    subprocess.run([sys.executable, "-c", code], check=True)
+    """The port and chip_smoke.py import nothing of octvr_tpu, bench,
+    jax or ml_dtypes: by their source (every import statement, those
+    inside functions included), and at run time (a fresh interpreter
+    that imports every module of the port is left without them)."""
+    files = sorted((ROOT / "octvr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = [(f.relative_to(ROOT), m) for f in files for m in _imported(f) if m in _BANNED]
+    assert not bad, bad
+    mods = [
+        ".".join(f.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for f in files if f.name != "chip_smoke.py"
+    ]
+    assert len(mods) > 20 and "octvr_tpu_torch.template.compiler" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_BANNED!r})\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT)
