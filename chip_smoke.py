@@ -25,6 +25,16 @@ Phases, each failing the run on any error:
         (B=4) against B one-frame launches;
      f. kernel 6 at NC=3 (the rgb band path) on the 96x256 fixture, with
         its frames axis, and on one band of the 4K rgb band-sharded plan;
+     g. kernel 8, the MXU-taps probe's three kernels (A per-pixel gather,
+        B folded f32 product, B2 exact bf16 selections on the tensor
+        cores), each against its plain version and the others, timed at
+        the probe's defaults with the function's bound (bytes over 3.35
+        TB/s: the three compute one bilinear sample), its own
+        formulation's operation floor (flops over 67 TFLOP/s f32 / 989
+        TFLOP/s bf16) and grid_sample on the same function; then the
+        probe's entry point
+        (octvr_tpu_torch.tools.mxu_taps_probe), whose launches are the
+        kernels' counts;
   4. small rigs (two fisheyes, 512x256): the port on CUDA in f32 against
      the port on the CPU, and bf16 against f32 on CUDA;
      b. every Mapper option on both pipelines, FastMapper, and a
@@ -55,8 +65,10 @@ Phases, each failing the run on any error:
      b. the rgb band path: the same through ShardedMapper(pipeline="rgb")
         (kernel 6 at NC=3, one launch per frame), against phase 5b's rgb
         Mapper output.
-The line before the last is a JSON summary of the kernels; the last line
-is {"ok": true, "device": {...}}.  Imports no JAX.
+Kernel times are the median of 5 CUDA-event windows of at least ~2 ms
+each, printed with their spread.  The line before the last is a JSON
+summary of the kernels; the last line is {"ok": true, "device": {...}}.
+Imports no JAX.
 """
 
 import importlib.util
@@ -80,6 +92,8 @@ RGB_ITERS = 8
 BATCH = 4
 SPACE = 4  # bands of the sharded phases
 SHARD_ITERS = 12
+TAPS = dict(steps=1917, g=8, kh=80, lo=16, hi=64)  # the MXU-taps probe's defaults
+TAPS_CHECK_STEPS = 64
 
 
 PI = math.pi
@@ -148,6 +162,17 @@ def cuda_ms(fn, iters=10, warmup=2):
     return a.elapsed_time(b) / iters
 
 
+def steady_ms(fn, windows=5, window_ms=2.0):
+    """Device time of one ``fn()`` in ms as (median, min, max) over
+    ``windows`` CUDA-event windows (``cuda_ms``), each of enough calls
+    for about ``window_ms`` of work by a first estimate: a short launch
+    is then timed over many calls, not a few."""
+    est = cuda_ms(fn, iters=3, warmup=2)
+    iters = min(2000, max(1, math.ceil(window_ms / max(est, 1e-3))))
+    times = sorted(cuda_ms(fn, iters=iters, warmup=1) for _ in range(windows))
+    return times[windows // 2], times[0], times[-1]
+
+
 def phase_env():
     log("== 1. environment")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -197,10 +222,12 @@ def _check_kernel(planes, group, label):
     return err32
 
 
-# H100 SXM peaks at its full power limit (700 W): HBM3 bytes/s and
-# f32 FLOP/s outside the tensor cores (NVIDIA's data sheet)
+# H100 SXM peaks at its full power limit (700 W): HBM3 bytes/s, f32
+# FLOP/s outside the tensor cores and dense bf16 FLOP/s on the tensor
+# cores (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 
 def _bound(groups, dtype, frames=1):
@@ -258,15 +285,16 @@ def _grid_sample_ms(flat, group, nc):
         for inp, grid in work:
             F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros", align_corners=False)
 
-    ms = cuda_ms(run, iters=10, warmup=2)
+    ms = steady_ms(run)[0]
     del work
     return ms
 
 
 def _time_kernel(src, group, dtype, label, nc=None, frames=False):
     """Kernel, plain-version and library-call ms of one launch by CUDA
-    events, and the launch's bound (``_bound``).  ``nc`` names the
-    channels of a flat (concat) source.  The kernel is timed through
+    events (kernel and library call: ``steady_ms``), and the launch's
+    bound (``_bound``).  ``nc`` names the channels of a flat (concat)
+    source.  The kernel is timed through
     ``launch_flat``: the wrapper's per-input views cost the host ~5 us
     per input, which can exceed a short launch, so the wrapper's call is
     timed apart.  Returns {ms, plain_ms, bound_ms, bound_by, library_ms,
@@ -276,14 +304,15 @@ def _time_kernel(src, group, dtype, label, nc=None, frames=False):
 
     apply = cuda_remap.remap_apply_frames if frames else cuda_remap.remap_apply
     plain_fn = remap_apply_frames_reference if frames else remap_apply_reference
-    ms = cuda_ms(lambda: cuda_remap.launch_flat(src, group, dtype, frames=frames), iters=50, warmup=5)
+    ms, ms_lo, ms_hi = steady_ms(lambda: cuda_remap.launch_flat(src, group, dtype, frames=frames))
     call = cuda_ms(lambda: apply(src, group, dtype), iters=50, warmup=5)
     plain = cuda_ms(lambda: plain_fn(src, group, dtype), iters=3, warmup=1)
     flat, c = flat_source(src, group, frames)
     nbytes, bound, by = _bound(((group, c),), dtype, flat.shape[0])
     lib = _grid_sample_ms(flat, group, c)
     valid = int((group.x0 >= 0).sum().item()) / group.starts[-1]
-    log(f"  {label}: kernel {ms:.4f} ms (wrapper call {call:.4f}), plain torch {plain:.4f} ms, "
+    log(f"  {label}: kernel {ms:.4f} ms (median; spread {ms_lo:.4f}-{ms_hi:.4f}; wrapper call {call:.4f}), "
+        f"plain torch {plain:.4f} ms, "
         f"grid_sample {lib:.4f} ms; {group.starts[-1]} output pixels ({valid:.3f} valid) x {c} channels"
         f"{f' x {flat.shape[0]} frames' if frames else ''}, {nbytes / 1e6:.1f} MB at least, "
         f"{nbytes / ms / 1e9:.3f} TB/s; bound {bound:.4f} ms ({by}), share {bound / ms:.3f}")
@@ -512,6 +541,137 @@ def phase_kernel_concat_nc3(host, frame_sets):
     for dtype in (torch.float32, torch.bfloat16):
         _time_kernel(src, group, dtype, f"{label}, {str(dtype)[6:]}", nc=3)
     return err
+
+
+def _taps_bound(body, steps, g, lo, hi):
+    """(bytes, flops, bound ms, "bytes" or "operations", floor ms) of one
+    launch of kernel 8's ``body`` over ``steps`` x ``g`` tiles of 8x128
+    pixels.  All three bodies compute the same bilinear sample, so they
+    share the function's bound: per pixel 16 B of plan and a 4 B f32
+    store, the visited window rows once (int32; the rows outside them are
+    never needed), and 6 f32 FMAs.  ``floor`` is the body's own
+    formulation's operation floor, logged beside the bound and never used
+    as it: B's dense f32 product, 128 x kb FMAs per pixel, and B2's two
+    such products in bf16 against the tensor cores' peak."""
+    from octvr_tpu_torch.ops.mxu_taps import TH, TW, visited_rows
+
+    klo, khi = visited_rows(lo, hi)
+    px = steps * g * TH * TW
+    nbytes = 20 * px + steps * (khi - klo) * TW * 4
+    flops = 12 * px
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    form_flops, peak = {
+        "fan": (flops, F32_FLOP_PER_S),
+        "mxu_folded": (2 * px * (khi - klo) * TW, F32_FLOP_PER_S),
+        "mxu_exact2": (4 * px * (khi - klo) * TW, BF16_FLOP_PER_S),
+    }[body]
+    floor = form_flops / peak * 1e3
+    return nbytes, form_flops, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", floor
+
+
+def _taps_grid_sample(oyl, fxy, win):
+    """The library yardstick of kernel 8: ms of one
+    F.grid_sample(win f32 [N, 1, KH, 128], grid [N, G*8, 128, 2],
+    bilinear, zeros, align_corners=True) with gx = 2 (l0 + fx) / 127 - 1,
+    gy = 2 (oy0 + fy) / (KH - 1) - 1: the same function (taps never
+    clamp: l0 <= 126, oy0 <= hi - 2), the grid and the cast made before
+    the timing.  Returns (ms, its output as [G, N, 8, 128])."""
+    import torch.nn.functional as F
+
+    n, g = oyl.shape[:2]
+    kh = win.shape[2]
+    oy0 = (oyl[:, :, :8] & 0xFFFF).float()
+    l0 = (oyl[:, :, 8:] & 0xFFFF).float()
+    gx = 2 * (l0 + fxy[:, :, :8]) / 127 - 1
+    gy = 2 * (oy0 + fxy[:, :, 8:]) / (kh - 1) - 1
+    grid = torch.stack([gx, gy], dim=-1).reshape(n, g * 8, 128, 2)
+    inp = win.float()
+
+    def run():
+        return F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+    ms = steady_ms(run)[0]
+    return ms, run()[:, 0].reshape(n, g, 8, 128).transpose(0, 1)
+
+
+def phase_mxu_taps():
+    """Kernel 8, the MXU-taps probe's three bodies (A: per-pixel gather;
+    B: folded one-hot f32 product on the CUDA cores; B2: two exact bf16
+    selection products on the tensor cores): each against its plain
+    version and the three against each other at 64 steps x G=8 and at
+    the probe's defaults (f32 max abs < 1e-3), timed at the defaults with
+    its bound, its plain version and grid_sample on the same function;
+    then the port's entry point, ``mxu_taps_probe.main([])``, with the
+    counts set to 0 just before it and read just after.  Returns the
+    kernels-line entry of each body."""
+    from octvr_tpu_torch.ops import mxu_taps
+    from octvr_tpu_torch.tools import mxu_taps_probe
+
+    log("== 3g. kernel 8 (the MXU-taps probe): A fan, B folded f32 product, B2 exact bf16 selections")
+    t_phase = time.time()
+    lo, hi = TAPS["lo"], TAPS["hi"]
+    names = ("fan", "mxu_folded", "mxu_exact2")
+    bodies = {k: (getattr(mxu_taps, k), getattr(mxu_taps, f"{k}_reference")) for k in names}
+
+    def inputs(steps):
+        arrays = mxu_taps_probe.make_probe_inputs(steps, TAPS["g"], TAPS["kh"], lo, hi)
+        return [torch.from_numpy(a).cuda() for a in arrays]
+
+    def max_err(xs, ys):
+        return max((a - b).abs().max().item() for a, b in zip(xs, ys))
+
+    rows = {k: {"err": 0.0} for k in names}
+    for steps in (TAPS_CHECK_STEPS, TAPS["steps"]):
+        t = inputs(steps)
+        got = {}
+        for k, (fn, ref) in bodies.items():
+            got[k] = fn(*t, lo, hi)
+            err = max_err(got[k], ref(*t, lo, hi))
+            torch.cuda.synchronize()
+            log(f"  {steps} steps x G={TAPS['g']}, {k}: kernel vs plain f32 max abs err {err:.3g} (bar < 1e-3)")
+            if not err < 1e-3:
+                raise AssertionError(f"kernel 8 {k} disagrees with its plain version at {steps} steps")
+            rows[k]["err"] = max(rows[k]["err"], err)
+        cross = {f"{a} vs {b}": max_err(got[a], got[b]) for a, b in ((names[0], names[1]), (names[0], names[2]), (names[1], names[2]))}
+        log(f"  {steps} steps: kernels against each other, max abs {cross} (bar < 1e-3)")
+        if not max(cross.values()) < 1e-3:
+            raise AssertionError(f"kernel 8's bodies disagree with each other at {steps} steps")
+        for k in names:
+            rows[k]["err"] = max(rows[k]["err"], *cross.values())
+
+    # t, got: the probe's defaults
+    lib, lib_out = _taps_grid_sample(*t)
+    d = max_err(lib_out, got["fan"])
+    log(f"  grid_sample on the same function: {lib:.4f} ms; max abs diff from A {d:.3g} (bar < 0.05: "
+        f"f32 rounding of the normalised grid moves a tap by ~1e-5 px)")
+    if not d < 0.05:
+        raise AssertionError("grid_sample does not compute kernel 8's function: the yardstick is wrong")
+    del got, lib_out
+    for k, (fn, ref) in bodies.items():
+        ms, ms_lo, ms_hi = steady_ms(lambda: fn(*t, lo, hi))
+        plain = cuda_ms(lambda: ref(*t, lo, hi), iters=1, warmup=1)
+        nbytes, flops, bound, by, floor = _taps_bound(k, TAPS["steps"], TAPS["g"], lo, hi)
+        log(f"  {k}, {TAPS['steps']} steps x G={TAPS['g']}: kernel {ms:.4f} ms (median; spread "
+            f"{ms_lo:.4f}-{ms_hi:.4f}), plain torch {plain:.4f} ms, grid_sample {lib:.4f} ms; "
+            f"{nbytes / 1e6:.1f} MB ({nbytes / ms / 1e9:.3f} TB/s); bound of the function "
+            f"{bound:.4f} ms ({by}), share {bound / ms:.3f}; this formulation's "
+            f"{flops / 1e9:.1f} GFLOP ({flops / ms / 1e9:.1f} TFLOP/s), its operation floor {floor:.4f} ms")
+        rows[k].update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib)
+    del t
+
+    log("  the entry point: octvr_tpu_torch.tools.mxu_taps_probe.main([])")
+    mxu_taps.reset_counts()
+    result = mxu_taps_probe.main([])
+    counts = dict(mxu_taps.COUNTS)
+    log(f"  entry point launches: {counts}")
+    if counts != {f"taps_{k}": 21 for k in names}:  # one warm-up call and 20 timed ones each
+        raise AssertionError(f"the probe's entry point took the wrong launches: {counts}")
+    if result["fan_ms"] <= 0 or result["visited_rows"] != hi - lo:
+        raise AssertionError(f"bad probe result {result}")
+    for k in names:
+        rows[k]["launches"] = counts[f"taps_{k}"]
+    log(f"  phase 3g took {time.time() - t_phase:.1f} s")
+    return rows
 
 
 def phase_sharded_small_options():
@@ -1329,6 +1489,7 @@ def main():
     err_concat = phase_kernel_concat(host, frame_sets)
     host_rgb, t_host_rgb = build_sharded_4k(mt, "rgb")
     err_concat_nc3 = phase_kernel_concat_nc3(host_rgb, frame_sets)
+    taps = phase_mxu_taps()
     phase_small_rig()
     mixed_launches, err_mixed = phase_small_rig_options()
     phase_default_path()
@@ -1346,23 +1507,29 @@ def main():
     log(f"total run time {time.time() - t_start:.1f} s")
     log(f"card: {smi}")
     src = "octvr_tpu_torch/csrc/remap.cu"
+    taps_src = "octvr_tpu_torch/csrc/mxu_taps.cu"
     pr = "octvr_tpu/ops/pallas_remap.py"
+    probe = "tools/mxu_taps_probe.py"
     rows = [
-        ("remap NC=1 (yuv420 Y), kernel 1", f"{pr}:661", main_path["nc1"], max(err_small, err_cam)),
-        ("remap NC=2 (yuv420 U|V), kernel 2", f"{pr}:661", main_path["nc2"], max(err_small, err_cam)),
-        ("remap NC=3 (rgb, equal sizes), kernel 3", f"{pr}:661", rgb, err_nc3),
-        ("remap NC=3 single-input launch (rgb, mixed sizes), kernel 4", f"{pr}:352",
+        ("remap NC=1 (yuv420 Y), kernel 1", src, f"{pr}:661", main_path["nc1"], max(err_small, err_cam)),
+        ("remap NC=2 (yuv420 U|V), kernel 2", src, f"{pr}:661", main_path["nc2"], max(err_small, err_cam)),
+        ("remap NC=3 (rgb, equal sizes), kernel 3", src, f"{pr}:661", rgb, err_nc3),
+        ("remap NC=3 single-input launch (rgb, mixed sizes), kernel 4", src, f"{pr}:352",
          {"launches": mixed_launches, "err": err_nc3, **t_single}, err_mixed),
-        ("remap frames axis (stitch_batch), kernel 5", f"{pr}:1242", batch, 0.0),
-        ("remap concat-source NC=1/2 (band-sharded yuv420, source windows), kernel 6", f"{pr}:1249",
+        ("remap frames axis (stitch_batch), kernel 5", src, f"{pr}:1242", batch, 0.0),
+        ("remap concat-source NC=1/2 (band-sharded yuv420, source windows), kernel 6", src, f"{pr}:1249",
          sharded, err_concat),
-        ("remap concat-source NC=3 (band-sharded rgb, source windows), kernel 6", f"{pr}:1249",
+        ("remap concat-source NC=3 (band-sharded rgb, source windows), kernel 6", src, f"{pr}:1249",
          sharded_rgb, err_concat_nc3),
+        ("MXU-taps probe A, per-pixel gather (fan), kernel 8", taps_src, f"{probe}:100", taps["fan"], 0.0),
+        ("MXU-taps probe B, folded f32 product, kernel 8", taps_src, f"{probe}:140", taps["mxu_folded"], 0.0),
+        ("MXU-taps probe B2, exact bf16 selection products (tensor cores), kernel 8", taps_src,
+         f"{probe}:197", taps["mxu_exact2"], 0.0),
     ]
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": src,
+        "source": source,
         "replaces": replaces,
         "launches": r["launches"],
         "max_abs_err": max(r["err"], extra),
@@ -1371,7 +1538,7 @@ def main():
         "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
-    } for name, replaces, r, extra in rows]}))
+    } for name, source, replaces, r, extra in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Port tests that need an NVIDIA card: the CUDA remap kernel (NC=1, 2
-and 3, one frame or a frames axis, stacked or concat sources) against
-its plain torch version, and the port's Mapper and ShardedMapper (every
-option group) on the card against the port on the CPU.  They carry the
+and 3, one frame or a frames axis, stacked or concat sources) and the
+three kernels of the MXU-taps probe (kernel 8) against their plain
+torch versions, and the port's Mapper and ShardedMapper (every option
+group) on the card against the port on the CPU.  They carry the
 ``cuda`` marker and skip without a card.
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from octvr_tpu_torch.ops import cuda_remap
+from octvr_tpu_torch.ops import cuda_remap, mxu_taps
 from octvr_tpu_torch.ops.remap import (
     concat_source,
     remap_apply_reference,
@@ -24,8 +25,10 @@ from octvr_tpu_torch.ops.remap import (
 from octvr_tpu_torch.parallel import ShardedMapper, make_mesh
 from octvr_tpu_torch.stitch import FastMapper, Mapper
 from octvr_tpu_torch.template import compile_rig
+from octvr_tpu_torch.tools.mxu_taps_probe import make_probe_inputs
 from remap_fixtures import H_B, IN_H, IN_W, LO, arc_maps, concat_maps, edge_maps
 from rigs import two_fisheye_rig
+from taps_fixtures import edge_probe_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -247,3 +250,46 @@ def test_sharded_options_on_card_match_cpu(cuda_device, name):
         oh = a.shape[0] * 2 // 3
         assert (a - b)[:oh].abs().mean() < 0.2 and (a - b)[oh:].abs().mean() < 0.2
     assert (g.cpu() - g_cpu).abs().max().item() < 1e-3
+
+
+TAPS = {
+    "fan": (mxu_taps.fan, mxu_taps.fan_reference),
+    "mxu_folded": (mxu_taps.mxu_folded, mxu_taps.mxu_folded_reference),
+    "mxu_exact2": (mxu_taps.mxu_exact2, mxu_taps.mxu_exact2_reference),
+}
+
+
+@pytest.mark.parametrize("steps,g", [(8, 2), (64, 8), ("edge", 2)])
+@pytest.mark.parametrize("body", sorted(TAPS))
+def test_taps_kernel_matches_plain_on_card(cuda_device, body, steps, g):
+    """Kernel 8 (A, B, B2) on the probe's workload (KH 80, taps in rows
+    [16, 64)) and on the edge taps: f32 within 1e-3 of its plain version,
+    one launch counted per call."""
+    fn, ref = TAPS[body]
+    arrays = edge_probe_inputs() if steps == "edge" else make_probe_inputs(steps, g, 80, 16, 64)
+    t = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    mxu_taps.reset_counts()
+    got = fn(*t, 16, 64)
+    torch.cuda.synchronize()
+    assert mxu_taps.COUNTS == {f"taps_{body}": 1} and mxu_taps.LAUNCHES == 1
+    want = ref(*t, 16, 64)
+    assert len(got) == len(want) == g
+    for a, b in zip(got, want):
+        assert a.shape == b.shape == (t[0].shape[0], 8, 128)
+        assert (a - b).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("body", sorted(TAPS))
+def test_taps_wrapper_raises_on_inputs_it_does_not_take(cuda_device, body):
+    """A wrong dtype, a window shorter than the visited rows, a
+    non-contiguous input: the wrapper raises and launches nothing."""
+    fn, _ = TAPS[body]
+    oyl, fxy, win = (torch.from_numpy(a).to(cuda_device) for a in make_probe_inputs(4, 2, 80, 16, 64))
+    mxu_taps.reset_counts()
+    with pytest.raises(ValueError, match="int32"):
+        fn(oyl, fxy, win.float(), 16, 64)
+    with pytest.raises(ValueError, match="visited rows"):
+        fn(oyl, fxy, win[:, :, :56].contiguous(), 16, 50)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(oyl, fxy, win.transpose(2, 3).contiguous().transpose(2, 3), 16, 64)
+    assert mxu_taps.LAUNCHES == 0
