@@ -7,24 +7,27 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
 Phases, each failing the run on any error:
   1. environment: torch, CUDA, triton, the card and its power limit;
-  2. build of the CUDA kernels from csrc/ (nvcc, sm_90a), with its time;
-  3. the remap kernel against its plain torch version on the card; every
-     timed launch also prints the bytes it must move, its bound (bytes
-     over 3.35 TB/s, or f32 flops over 67 TFLOP/s if larger), its share
-     of that bound, and the time of torch.nn.functional.grid_sample on
-     the same shapes (the library yardstick):
+  2. build of the two kernel libraries (utils/build.py: ``product``,
+     csrc/remap.cu; ``tools``, csrc/mxu_taps.cu; nvcc, sm_90a), one nvcc
+     each, started together, with each one's time and ptxas register
+     and spill lines;
+  3. the remap kernels (csrc/remap.cu: remap_kernel for one frame,
+     remap_frames_kernel for B frames) against their plain torch
+     version on the card:
      a. NC=1 and NC=2, f32 and bf16, on small fixtures;
      b. at one 1920^2 camera's Y and U|V plans from the 4K template;
      c. NC=3 (the rgb remap) on the small fixtures, at one 4K camera's
         plan and as a single-input launch (the mixed-size shape);
-     d. a frames-axis launch (B=4) against B one-frame launches;
+     d. frames launches (B = 1, 3, 4, 5; stacked and concat sources)
+        against B one-frame launches, bit for bit;
      e. kernel 6, the concat-source mode (each input reads a slice of
         camera rows of its own height), NC=1/2, f32/bf16, on the 96x256
         fixture and on one band of the 4K band-sharded plan (S=4, source
-        windows), timed against its plain version, and its frames axis
-        (B=4) against B one-frame launches;
+        windows), and its frames launch (B=4) against B one-frame
+        launches;
      f. kernel 6 at NC=3 (the rgb band path) on the 96x256 fixture, with
-        its frames axis, and on one band of the 4K rgb band-sharded plan;
+        its frames launch, and on one band of the 4K rgb band-sharded
+        plan;
      g. kernel 8, the MXU-taps probe's three kernels (A per-pixel gather,
         B folded f32 product, B2 exact bf16 selections on the tensor
         cores), each against its plain version and the others, timed at
@@ -35,10 +38,18 @@ Phases, each failing the run on any error:
         probe's entry point
         (octvr_tpu_torch.tools.mxu_taps_probe), whose launches are the
         kernels' counts;
+     h. every 4K remap launch timed (``remap_rows``): device ms, the
+        eager call's ms, the plain version's ms, the bytes it must move,
+        its bound (bytes over 3.35 TB/s, or f32 flops over 67 TFLOP/s if
+        larger) and share, and the device ms of
+        torch.nn.functional.grid_sample on the same shapes (the library
+        yardstick), beside the replaced kernel's device ms
+        (``BEFORE_MS``);
   4. small rigs (two fisheyes, 512x256): the port on CUDA in f32 against
      the port on the CPU, and bf16 against f32 on CUDA;
      b. every Mapper option on both pipelines, FastMapper, and a
-        mixed-size rig, CUDA against CPU;
+        mixed-size rig (rgb also with a bf16 blend and gains, which
+        stores f32 as the JAX Mapper does), CUDA against CPU;
      c. the default-path regression of bench.py: the CUDA defaults
         (yuv420 + bf16) against rgb + f32 on the card;
      d. the band-sharded stitcher (ShardedMapper, S=4) on CUDA in f32
@@ -65,10 +76,22 @@ Phases, each failing the run on any error:
      b. the rgb band path: the same through ShardedMapper(pipeline="rgb")
         (kernel 6 at NC=3, one launch per frame), against phase 5b's rgb
         Mapper output.
-Kernel times are the median of 5 CUDA-event windows of at least ~2 ms
-each, printed with their spread.  The line before the last is a JSON
-summary of the kernels; the last line is {"ok": true, "device": {...}}.
-Imports no JAX.
+Kernel times (``ms``, ``library_ms``) are device times
+(``device_ms``): K back-to-back calls captured in one CUDA graph, K
+enough for ~2 ms of work, replayed in 5 CUDA-event windows; the median
+over K, printed with its spread.  ``call_ms`` is the eager call's time
+(``steady_ms``: the median of 5 CUDA-event windows of ~2 ms of eager
+calls), which for a launch under ~50 MB reads the host's per-call path,
+not the kernel.  The line before the last is a JSON summary of the
+kernels; the last line is {"ok": true, "device": {...}}.  Imports no
+JAX.
+
+    python3 chip_smoke.py --time-remap ROOT [--pixels 1,2,4]
+
+times only the 4K remap launches (phase 3h's rows, device and call ms)
+of the package in the checkout at ROOT and prints them as one JSON line:
+run it on two checkouts in turns, in one call on one card, to compare
+their kernels.
 """
 
 import importlib.util
@@ -163,13 +186,54 @@ def cuda_ms(fn, iters=10, warmup=2):
 
 
 def steady_ms(fn, windows=5, window_ms=2.0):
-    """Device time of one ``fn()`` in ms as (median, min, max) over
+    """Time of one eager ``fn()`` call in ms as (median, min, max) over
     ``windows`` CUDA-event windows (``cuda_ms``), each of enough calls
-    for about ``window_ms`` of work by a first estimate: a short launch
-    is then timed over many calls, not a few."""
+    for about ``window_ms`` of work by a first estimate.  A call whose
+    device work is shorter than its host path reads the host's pace:
+    this is a call time, not a kernel time (``device_ms``)."""
     est = cuda_ms(fn, iters=3, warmup=2)
     iters = min(2000, max(1, math.ceil(window_ms / max(est, 1e-3))))
     times = sorted(cuda_ms(fn, iters=iters, warmup=1) for _ in range(windows))
+    return times[windows // 2], times[0], times[-1]
+
+
+def device_ms(fn, windows=5, window_ms=2.0):
+    """Device time of one ``fn()`` in ms as (median, min, max), without
+    the host's per-call path: K back-to-back calls are captured in one
+    CUDA graph (K enough for about ``window_ms`` of work, from a replay
+    of 8 calls), the graph is replayed in ``windows`` CUDA-event windows,
+    and each window's time is divided by K.  ``fn`` must launch only
+    capturable work (no host sync).  Calls run back to back, so a launch
+    whose inputs fit the 50 MB L2 finds them there, for a kernel and its
+    ``grid_sample`` yardstick alike."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+
+    def replay_ms(graph, k):
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / k
+
+    def capture(k):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(k):
+                fn()
+        graph.replay()  # the first replay uploads the graph
+        return graph
+
+    graph = capture(8)
+    est = replay_ms(graph, 8)
+    del graph
+    k = min(4000, max(1, math.ceil(window_ms / max(est, 1e-4))))
+    graph = capture(k)
+    times = sorted(replay_ms(graph, k) for _ in range(windows))
+    del graph
+    torch.cuda.synchronize()
     return times[windows // 2], times[0], times[-1]
 
 
@@ -191,17 +255,32 @@ def phase_env():
 
 
 def phase_build():
+    """Builds the two kernel libraries, each from its own sources, with
+    one nvcc process per library, all started together; prints each
+    build's time and its ptxas register and spill lines."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from octvr_tpu_torch.utils import build
 
     log("== 2. kernel build")
+
+    def timed(group):
+        t0 = time.time()
+        build.load_library(group)
+        return time.time() - t0
+
     t0 = time.time()
-    build.load_library()
-    log(f"built/loaded {build.library_path().name} in {time.time() - t0:.2f} s")
-    ptxas = build.library_path().with_suffix(".log")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas: " + line.strip())
+    with ThreadPoolExecutor(len(build.GROUPS)) as pool:
+        took = dict(zip(build.GROUPS, pool.map(timed, build.GROUPS)))
+    log(f"  both built/loaded in {time.time() - t0:.2f} s")
+    for group in build.GROUPS:
+        lib = build.library_path(group)
+        log(f"  {group}: {lib.name} ({', '.join(build.GROUPS[group])}) in {took[group]:.2f} s")
+        ptxas = lib.with_suffix(".log")
+        if ptxas.exists():
+            for line in ptxas.read_text().splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    log("    ptxas: " + line.strip())
 
 
 def _check_kernel(planes, group, label):
@@ -251,7 +330,8 @@ def _bound(groups, dtype, frames=1):
 
 
 def _grid_sample_ms(flat, group, nc):
-    """The library yardstick: ms of torch.nn.functional.grid_sample
+    """The library yardstick: device ms (``device_ms``) of
+    torch.nn.functional.grid_sample
     (bilinear, zeros padding, align_corners=False) computing the same
     output pixels from the same sources, converted to f32 beforehand;
     one call per distinct source height (its inputs stacked, each
@@ -285,43 +365,52 @@ def _grid_sample_ms(flat, group, nc):
         for inp, grid in work:
             F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros", align_corners=False)
 
-    ms = steady_ms(run)[0]
+    ms = device_ms(run)[0]
     del work
     return ms
 
 
-def _time_kernel(src, group, dtype, label, nc=None, frames=False):
-    """Kernel, plain-version and library-call ms of one launch by CUDA
-    events (kernel and library call: ``steady_ms``), and the launch's
-    bound (``_bound``).  ``nc`` names the channels of a flat (concat)
-    source.  The kernel is timed through
-    ``launch_flat``: the wrapper's per-input views cost the host ~5 us
-    per input, which can exceed a short launch, so the wrapper's call is
-    timed apart.  Returns {ms, plain_ms, bound_ms, bound_by, library_ms,
-    bytes}."""
+def _time_kernel(src, group, dtype, label, frames=False, pixels=None, full=True):
+    """Times of one raw launch (``launch_flat``; ``pixels``: P of the
+    one-frame kernel, default the wrapper's): ``ms``, its device time
+    (``device_ms``), and ``call_ms``, the eager call's time
+    (``steady_ms``), which below ~50 MB reads the host path of
+    ``launch_flat``.  With ``full`` also the plain version's ms, the
+    device ms of ``grid_sample`` on the same shapes and the launch's
+    bound (``_bound``).  Returns {ms, call_ms[, plain_ms, bound_ms,
+    bound_by, library_ms, bytes]}."""
     from octvr_tpu_torch.ops import cuda_remap
     from octvr_tpu_torch.ops.remap import flat_source, remap_apply_frames_reference, remap_apply_reference
 
-    apply = cuda_remap.remap_apply_frames if frames else cuda_remap.remap_apply
+    kw = {} if pixels is None else {"pixels": pixels}
+
+    def launch():
+        cuda_remap.launch_flat(src, group, dtype, frames=frames, **kw)
+
+    ms, ms_lo, ms_hi = device_ms(launch)
+    call = steady_ms(launch)[0]
+    out = {"ms": ms, "call_ms": call}
+    if not full:
+        log(f"  {label}: device {ms:.5f} ms (median; spread {ms_lo:.5f}-{ms_hi:.5f}), call {call:.5f} ms")
+        return out
     plain_fn = remap_apply_frames_reference if frames else remap_apply_reference
-    ms, ms_lo, ms_hi = steady_ms(lambda: cuda_remap.launch_flat(src, group, dtype, frames=frames))
-    call = cuda_ms(lambda: apply(src, group, dtype), iters=50, warmup=5)
     plain = cuda_ms(lambda: plain_fn(src, group, dtype), iters=3, warmup=1)
     flat, c = flat_source(src, group, frames)
     nbytes, bound, by = _bound(((group, c),), dtype, flat.shape[0])
     lib = _grid_sample_ms(flat, group, c)
     valid = int((group.x0 >= 0).sum().item()) / group.starts[-1]
-    log(f"  {label}: kernel {ms:.4f} ms (median; spread {ms_lo:.4f}-{ms_hi:.4f}; wrapper call {call:.4f}), "
-        f"plain torch {plain:.4f} ms, "
-        f"grid_sample {lib:.4f} ms; {group.starts[-1]} output pixels ({valid:.3f} valid) x {c} channels"
-        f"{f' x {flat.shape[0]} frames' if frames else ''}, {nbytes / 1e6:.1f} MB at least, "
-        f"{nbytes / ms / 1e9:.3f} TB/s; bound {bound:.4f} ms ({by}), share {bound / ms:.3f}")
-    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib, "bytes": nbytes}
+    log(f"  {label}: device {ms:.5f} ms (median; spread {ms_lo:.5f}-{ms_hi:.5f}), call {call:.5f} ms, "
+        f"plain torch {plain:.4f} ms, grid_sample {lib:.5f} ms (device); {group.starts[-1]} output pixels "
+        f"({valid:.3f} valid) x {c} channels{f' x {flat.shape[0]} frames' if frames else ''}, "
+        f"{nbytes / 1e6:.1f} MB at least, {nbytes / ms / 1e9:.3f} TB/s; bound {bound:.5f} ms ({by}), "
+        f"share {bound / ms:.3f}")
+    out.update(plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib, bytes=nbytes)
+    return out
 
 
 def _sum_times(*ts):
     """The times of launches that run together, summed."""
-    out = {k: sum(t[k] for t in ts) for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bytes")}
+    out = {k: sum(t[k] for t in ts) for k in ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms", "bytes")}
     out["bound_by"] = "bytes" if all(t["bound_by"] == "bytes" for t in ts) else "operations"
     return out
 
@@ -361,15 +450,13 @@ def phase_kernel_4k_camera(mt):
         group = remap_group([remap_plan(*maps, h, w)], "cuda")
         planes = torch.from_numpy(rng.integers(0, 256, (1, nc, h, w), dtype=np.uint8)).cuda()
         err = max(err, _check_kernel(planes, group, f"camera 0, NC={nc}, ROI {maps[0].shape}"))
-        for dtype in (torch.float32, torch.bfloat16):
-            _time_kernel(planes, group, dtype, f"camera 0, NC={nc}, {str(dtype)[6:]}")
     return err
 
 
 def phase_kernel_nc3(mt):
     """NC=3 against its plain version: f32 within 1e-3, bf16 within 1.0
-    of f32.  Returns the max f32 error and the single-input launch's
-    times (f32 store, the mixed-size launch; ``_time_kernel``)."""
+    of f32, on the small fixtures and on one 4K camera's single-input
+    launch (the mixed-size shape).  Returns the max f32 error."""
     from octvr_tpu_torch.ops.remap import remap_group, remap_plan
     from remap_fixtures import IN_H, IN_W, arc_maps, edge_maps
 
@@ -387,37 +474,34 @@ def phase_kernel_nc3(mt):
     group = remap_group([remap_plan(inp.map1, inp.map2, CAM, CAM)], "cuda")
     planes = torch.from_numpy(rng.integers(0, 256, (1, 3, CAM, CAM), dtype=np.uint8)).cuda()
     err = max(err, _check_kernel(planes, group, f"camera 0 single-input launch, NC=3, ROI {inp.map1.shape}"))
-    t_single = _time_kernel(planes, group, torch.float32, "camera 0 single-input launch, NC=3, f32")
-    _time_kernel(planes, group, torch.bfloat16, "camera 0 single-input launch, NC=3, bf16")
-    return err, t_single
+    return err
 
 
 def phase_frames_axis():
-    """A frames-axis launch over B frames against B one-frame launches:
-    bit-identical, NC=1 and NC=2 (the yuv420 planes) and NC=3."""
-    from octvr_tpu_torch.ops import cuda_remap
-    from octvr_tpu_torch.ops.remap import remap_group, remap_plan
-    from remap_fixtures import IN_H, IN_W, arc_maps, edge_maps
+    """The frames kernel over B frames against B one-frame launches:
+    bit-identical, B in (1, 3, 4, 5), NC=1 and NC=2 (the yuv420 planes)
+    and NC=3, f32 and bf16, on stacked sources and on concat sources
+    (kernel 6's fixture)."""
+    from octvr_tpu_torch.ops.remap import concat_source, remap_group, remap_plan
+    from remap_fixtures import H_B, IN_H, IN_W, LO, arc_maps, concat_maps, edge_maps
 
-    log(f"== 3d. frames-axis launch (B={BATCH}) vs {BATCH} one-frame launches")
-    group = remap_group(
+    log("== 3d. frames launch (B = 1, 3, 4, 5) vs B one-frame launches")
+    stacked = remap_group(
         [remap_plan(*arc_maps(64, 256), IN_H, IN_W), remap_plan(*edge_maps(), IN_H, IN_W)], "cuda"
     )
+    a, _, b_s = concat_maps()
+    concat = remap_group([remap_plan(*a, IN_H, IN_W), remap_plan(*b_s, H_B, IN_W)], "cuda")
     rng = np.random.default_rng(17)
     for nc in (1, 2, 3):
-        planes = torch.from_numpy(
-            rng.integers(0, 256, (BATCH, 2, nc, IN_H, IN_W), dtype=np.uint8)
-        ).cuda()
-        for dtype in (torch.float32, torch.bfloat16):
-            got = cuda_remap.remap_apply_frames(planes, group, dtype)
-            same = all(
-                torch.equal(g[b], one)
-                for b in range(BATCH)
-                for g, one in zip(got, cuda_remap.remap_apply(planes[b], group, dtype))
-            )
-            log(f"  NC={nc}, {str(dtype)[6:]}: bit-identical {same}")
-            if not same:
-                raise AssertionError(f"frames-axis launch differs from one-frame launches, NC={nc}")
+        for b in (1, 3, BATCH, 5):
+            planes = torch.from_numpy(rng.integers(0, 256, (b, 2, nc, IN_H, IN_W), dtype=np.uint8)).cuda()
+            cat = concat_source([planes[:, 0], planes[:, 0, :, LO : LO + H_B]], frames=True)
+            for name, src, group in (("stacked", planes, stacked), ("concat", cat, concat)):
+                for dtype in (torch.float32, torch.bfloat16):
+                    if not _frames_equal_one_frame(src, group, dtype):
+                        raise AssertionError(
+                            f"frames launch differs from one-frame launches: NC={nc}, B={b}, {name}, {dtype}")
+        log(f"  NC={nc}: B = 1, 3, {BATCH}, 5, stacked and concat, f32 and bf16: bit-identical")
 
 
 def _check_concat(src, group, label, frames=False):
@@ -500,8 +584,6 @@ def phase_kernel_concat(host, frame_sets):
                 f"{str(dtype)[6:]}: bit-identical {same}")
             if not same:
                 raise AssertionError(f"kernel 6 frames axis differs from one-frame launches: {label}")
-        for dtype in (torch.float32, torch.bfloat16):
-            _time_kernel(src[0], group, dtype, f"{label}, {str(dtype)[6:]}", nc=nc)
     return err
 
 
@@ -509,8 +591,8 @@ def phase_kernel_concat_nc3(host, frame_sets):
     """Kernel 6 at NC=3, the rgb band path's launch, against its plain
     version: f32 within 1e-3 and the bf16 store equal to the cast f32
     store, on the 96x256 fixture (and its frames axis, bit-identical to
-    one-frame launches) and on one band of the 4K rgb band-sharded plan,
-    timed with its bound and grid_sample.  Returns the max f32 error."""
+    one-frame launches) and on one band of the 4K rgb band-sharded plan.
+    Returns the max f32 error."""
     from octvr_tpu_torch.ops.remap import concat_source, remap_group, remap_plan
     from remap_fixtures import H_B, IN_H, IN_W, LO, concat_maps
 
@@ -538,9 +620,151 @@ def phase_kernel_concat_nc3(host, frame_sets):
     src = concat_source([x[0, band if x.shape[1] > 1 else 0] for x in parts])
     label = f"4K rgb band {band}, NC=3, {len(host.remap)} inputs"
     err = max(err, _check_concat(src, group, label))
-    for dtype in (torch.float32, torch.bfloat16):
-        _time_kernel(src, group, dtype, f"{label}, {str(dtype)[6:]}", nc=3)
     return err
+
+
+def remap_rows(mt, host, host_rgb):
+    """Every timed remap launch at 4K, as the paths build it: key ->
+    (label, source, group, store dtype, frames).  The groups are the
+    Mapper's (its size group of the 6 cameras, Y at full and U|V at half
+    resolution, RGB on the Y plans), one camera's (3b, and kernel 4's
+    single-input launch), the band-sharded plans' (``host``, ``host_rgb``:
+    band 1 as 3e and 3f check it, and each path's whole launch); the
+    sources are random uint8 from seed 0 on the card (a launch's time
+    does not depend on its pixel values).  Uses only the package's
+    public plan API, so the rows of another checkout's package can be
+    timed the same way (``--time-remap``)."""
+    from octvr_tpu_torch.ops.remap import remap_group, remap_plan
+    from octvr_tpu_torch.stitch.yuv_mode import half_maps
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def planes(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen)
+
+    def flat(group, nc, frames=None):
+        n = nc * group.src_rows * group.in_shape[1]
+        return planes(n) if frames is None else planes(frames, n)
+
+    half = CAM // 2
+    full_plans = [remap_plan(i.map1, i.map2, CAM, CAM) for i in mt.inputs]
+    half_plans = [remap_plan(*half_maps(i.map1, i.map2, i.roi)[:2], half, half) for i in mt.inputs]
+    gy, guv = remap_group(full_plans, "cuda"), remap_group(half_plans, "cuda")
+    g0, g0uv = remap_group(full_plans[:1], "cuda"), remap_group(half_plans[:1], "cuda")
+    sm, _ = sharded_on_card(host)
+    smr, _ = sharded_on_card(host_rgb)
+    band = 1
+    b1, b2 = (remap_group([p[band] for p in plans], "cuda", concat=True) for plans in (host.remap, host.remap_uv))
+    b3 = remap_group([p[band] for p in host_rgb.remap], "cuda", concat=True)
+    f32, bf16 = torch.float32, torch.bfloat16
+    n = len(mt.inputs)
+    rows = {}
+    for tag, dt in (("f32", f32), ("bf16", bf16)):
+        rows[f"cam0_nc1_{tag}"] = (f"3b camera 0, NC=1, {tag}", planes(1, 1, CAM, CAM), g0, dt, False)
+        rows[f"cam0_nc2_{tag}"] = (f"3b camera 0, NC=2, {tag}", planes(1, 2, half, half), g0uv, dt, False)
+        rows[f"single_nc3_{tag}"] = (f"3c camera 0 single-input launch (kernel 4), NC=3, {tag}",
+                                     planes(1, 3, CAM, CAM), g0, dt, False)
+        rows[f"band1_nc1_{tag}"] = (f"3e 4K band {band}, NC=1, {tag}", flat(b1, 1), b1, dt, False)
+        rows[f"band1_nc2_{tag}"] = (f"3e 4K band {band}, NC=2, {tag}", flat(b2, 2), b2, dt, False)
+        rows[f"rgb_band1_nc3_{tag}"] = (f"3f 4K rgb band {band}, NC=3, {tag}", flat(b3, 3), b3, dt, False)
+    rows.update({
+        "y_nc1_bf16": ("5 Y group launch (kernel 1), NC=1, bf16", planes(n, 1, CAM, CAM), gy, bf16, False),
+        "uv_nc2_bf16": ("5 U|V group launch (kernel 2), NC=2, bf16", planes(n, 2, half, half), guv, bf16, False),
+        "rgb_nc3_bf16": ("5b RGB group launch (kernel 3), NC=3, bf16", planes(n, 3, CAM, CAM), gy, bf16, False),
+        "frames_y_nc1_bf16": (f"5c frames launch (kernel 5), Y, B={BATCH}, bf16",
+                              planes(BATCH, n, 1, CAM, CAM), gy, bf16, True),
+        "frames_uv_nc2_bf16": (f"5c frames launch (kernel 5), U|V, B={BATCH}, bf16",
+                               planes(BATCH, n, 2, half, half), guv, bf16, True),
+        "sharded_nc1_bf16": ("6 sharded launch (kernel 6), NC=1, bf16", flat(sm.plan.remap, 1), sm.plan.remap, bf16, False),
+        "sharded_nc2_bf16": ("6 sharded launch (kernel 6), NC=2, bf16", flat(sm.plan.remap_uv, 2), sm.plan.remap_uv,
+                             bf16, False),
+        "sharded_nc3_bf16": ("6b sharded rgb launch (kernel 6), NC=3, bf16", flat(smr.plan.remap, 3), smr.plan.remap,
+                             bf16, False),
+    })
+    return rows
+
+
+# Device ms (``device_ms``) of each row of ``remap_rows`` on the one
+# thread per pixel kernel that remap_kernel and remap_frames_kernel
+# replaced (its frames axis: one frame per blockIdx.z), timed by
+# ``python3 chip_smoke.py --time-remap <a checkout of that kernel>`` on
+# an NVIDIA H100 80GB HBM3 at 700 W, the mean of two runs in one call
+# (PERF.md §6).
+BEFORE_MS = {
+    "cam0_nc1_f32": 0.008827,
+    "cam0_nc2_f32": 0.004197,
+    "single_nc3_f32": 0.025613,
+    "band1_nc1_f32": 0.064162,
+    "band1_nc2_f32": 0.022408,
+    "rgb_band1_nc3_f32": 0.112698,
+    "cam0_nc1_bf16": 0.008765,
+    "cam0_nc2_bf16": 0.004167,
+    "single_nc3_bf16": 0.022111,
+    "band1_nc1_bf16": 0.060726,
+    "band1_nc2_bf16": 0.017555,
+    "rgb_band1_nc3_bf16": 0.099664,
+    "y_nc1_bf16": 0.138465,
+    "uv_nc2_bf16": 0.045737,
+    "rgb_nc3_bf16": 0.241982,
+    "frames_y_nc1_bf16": 0.546424,
+    "frames_uv_nc2_bf16": 0.176221,
+    "sharded_nc1_bf16": 0.213898,
+    "sharded_nc2_bf16": 0.067753,
+    "sharded_nc3_bf16": 0.332530,
+}
+
+
+def phase_remap_device_time(mt, host, host_rgb):
+    """Every 4K remap row (``remap_rows``) timed as device time: the
+    kernel, its eager call, its plain version, grid_sample, the bound,
+    beside the replaced kernel's device time (``BEFORE_MS``).  Returns
+    {key: times}."""
+    log("== 3h. device time of every 4K remap launch (CUDA graph of K launches, median of 5 replays)")
+    t0 = time.time()
+    rows = remap_rows(mt, host, host_rgb)
+    times = {}
+    for key, (label, src, group, dtype, frames) in rows.items():
+        times[key] = t = _time_kernel(src, group, dtype, label, frames=frames)
+        if key in BEFORE_MS:
+            log(f"    before {BEFORE_MS[key]:.5f} ms -> now {t['ms']:.5f} ms ({BEFORE_MS[key] / t['ms']:.2f}x); "
+                f"share {t['bound_ms'] / BEFORE_MS[key]:.3f} -> {t['bound_ms'] / t['ms']:.3f}; "
+                f"grid_sample {t['library_ms']:.5f} ms")
+    for keys, label in (
+        (("y_nc1_bf16", "uv_nc2_bf16"), "Mapper launches (Y + U|V)"),
+        (("frames_y_nc1_bf16", "frames_uv_nc2_bf16"), f"frames launches (Y + U|V, B={BATCH})"),
+        (("sharded_nc1_bf16", "sharded_nc2_bf16"), "sharded launches (Y + U|V)"),
+    ):
+        _traffic([(rows[k][2], 2 if "nc2" in k else 1) for k in keys], _sum_times(*(times[k] for k in keys)), label)
+    log(f"  phase 3h took {time.time() - t0:.1f} s")
+    return times
+
+
+def time_remap(root, pixels):
+    """``--time-remap ROOT``: device and call ms of every ``remap_rows``
+    launch of the package at ROOT (``pixels``: also at each P of the
+    one-frame kernel, where that package's ``launch_flat`` takes it),
+    printed as one JSON line.  Two checkouts are compared by running this
+    on each, in turns, in one call on one card."""
+    sys.path.insert(0, os.path.abspath(root))
+    import octvr_tpu_torch
+    from octvr_tpu_torch.template import compile_rig
+
+    log(f"== timing the remap rows of {os.path.dirname(octvr_tpu_torch.__file__)}")
+    mt = compile_rig(six_cam_rig(), CANVAS_W, CANVAS_H)
+    mt.create_masks()
+    host, _ = build_sharded_4k(mt)
+    host_rgb, _ = build_sharded_4k(mt, "rgb")
+    rows = remap_rows(mt, host, host_rgb)
+    result = {}
+    for p in pixels or [None]:
+        for key, (label, src, group, dtype, frames) in rows.items():
+            if frames and pixels and p != pixels[0]:
+                continue
+            t = _time_kernel(src, group, dtype, f"{label}{'' if p is None else f', P={p}'}",
+                             frames=frames, pixels=None if frames else p, full=False)
+            result[key if p is None else f"{key}@P{p}"] = t
+    print(json.dumps({"root": os.path.abspath(root), "rows": result}))
 
 
 def _taps_bound(body, steps, g, lo, hi):
@@ -570,7 +794,7 @@ def _taps_bound(body, steps, g, lo, hi):
 
 
 def _taps_grid_sample(oyl, fxy, win):
-    """The library yardstick of kernel 8: ms of one
+    """The library yardstick of kernel 8: device ms (``device_ms``) of one
     F.grid_sample(win f32 [N, 1, KH, 128], grid [N, G*8, 128, 2],
     bilinear, zeros, align_corners=True) with gx = 2 (l0 + fx) / 127 - 1,
     gy = 2 (oy0 + fy) / (KH - 1) - 1: the same function (taps never
@@ -590,7 +814,7 @@ def _taps_grid_sample(oyl, fxy, win):
     def run():
         return F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
 
-    ms = steady_ms(run)[0]
+    ms = device_ms(run)[0]
     return ms, run()[:, 0].reshape(n, g, 8, 128).transpose(0, 1)
 
 
@@ -648,15 +872,16 @@ def phase_mxu_taps():
         raise AssertionError("grid_sample does not compute kernel 8's function: the yardstick is wrong")
     del got, lib_out
     for k, (fn, ref) in bodies.items():
-        ms, ms_lo, ms_hi = steady_ms(lambda: fn(*t, lo, hi))
+        ms, ms_lo, ms_hi = device_ms(lambda: fn(*t, lo, hi))
+        call = steady_ms(lambda: fn(*t, lo, hi))[0]
         plain = cuda_ms(lambda: ref(*t, lo, hi), iters=1, warmup=1)
         nbytes, flops, bound, by, floor = _taps_bound(k, TAPS["steps"], TAPS["g"], lo, hi)
-        log(f"  {k}, {TAPS['steps']} steps x G={TAPS['g']}: kernel {ms:.4f} ms (median; spread "
-            f"{ms_lo:.4f}-{ms_hi:.4f}), plain torch {plain:.4f} ms, grid_sample {lib:.4f} ms; "
+        log(f"  {k}, {TAPS['steps']} steps x G={TAPS['g']}: kernel device {ms:.4f} ms (median; spread "
+            f"{ms_lo:.4f}-{ms_hi:.4f}), call {call:.4f} ms, plain torch {plain:.4f} ms, grid_sample {lib:.4f} ms; "
             f"{nbytes / 1e6:.1f} MB ({nbytes / ms / 1e9:.3f} TB/s); bound of the function "
             f"{bound:.4f} ms ({by}), share {bound / ms:.3f}; this formulation's "
             f"{flops / 1e9:.1f} GFLOP ({flops / ms / 1e9:.1f} TFLOP/s), its operation floor {floor:.4f} ms")
-        rows[k].update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib)
+        rows[k].update(ms=ms, call_ms=call, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib)
     del t
 
     log("  the entry point: octvr_tpu_torch.tools.mxu_taps_probe.main([])")
@@ -895,6 +1120,14 @@ def phase_small_rig_options():
     )
     if counts != {"nc3_f32": 2}:
         raise AssertionError(f"mixed-size rgb stitch: want 2 single-input NC=3 launches, got {counts}")
+    # the mixed-size rgb path with a bf16 blend stores f32 and applies the
+    # gains (or the blocks gain maps) in f32, as the JAX Mapper does
+    for gain in (True, "blocks"):
+        kw16 = dict(blend=16, enable_gain=gain, blend_dtype="bfloat16")
+        _, counts16 = _cuda_vs_cpu(f"mixed sizes, bf16 blend, gains {gain}",
+                                   lambda d: Mapper(mmt, msizes, device=d, pipeline="rgb", **kw16), mframes)
+        if counts16 != {"nc3_f32": 2}:
+            raise AssertionError(f"mixed-size rgb bf16 stitch: want 2 f32-store NC=3 launches, got {counts16}")
     # kernel 4 at this path's own launches: each single-input group
     planes = m._prep_rgb(m._frames_to_device(mframes, batched=False))
     err = 0.0
@@ -1094,9 +1327,6 @@ def phase_main_path(mt, t_template, frame_sets):
     log(f"  6-camera group launches, kernel vs plain f32: max abs err {err:.3g}")
     if not err < 1e-3:
         raise AssertionError("remap kernel disagrees at the main path's shapes")
-    t_y = _time_kernel(planes_y, gy, torch.bfloat16, "Y group launch, NC=1, bf16")
-    t_uv = _time_kernel(planes_uv, guv, torch.bfloat16, "UV group launch, NC=2, bf16")
-    _traffic(((gy, 1), (guv, 2)), _sum_times(t_y, t_uv), "Mapper launches (Y + U|V)")
     del planes_y, planes_uv, ys, uvs
 
     profile(mapper.stitch, frame_sets, ms_frame)
@@ -1105,8 +1335,8 @@ def phase_main_path(mt, t_template, frame_sets):
         "out0": out,
         "gains0": gains,
         "ms_frame": ms_frame,
-        "nc1": {"launches": counts["nc1_bf16"], "err": err, **t_y},
-        "nc2": {"launches": counts["nc2_bf16"], "err": err, **t_uv},
+        "nc1": {"launches": counts["nc1_bf16"], "err": err},
+        "nc2": {"launches": counts["nc2_bf16"], "err": err},
     }
 
 
@@ -1161,10 +1391,9 @@ def phase_rgb_path(mt, frame_sets):
     log(f"  6-camera NC=3 launch, kernel vs plain f32: max abs err {err:.3g}")
     if not err < 1e-3:
         raise AssertionError("NC=3 kernel disagrees at the rgb path's shapes")
-    t = _time_kernel(planes, group, torch.bfloat16, "6-camera NC=3 launch, bf16")
     del planes, k, r
     profile(mapper.stitch, sets, ms_frame)
-    return {"launches": counts["nc3_bf16"], "err": err, "out0": out, "gains0": gains, **t}
+    return {"launches": counts["nc3_bf16"], "err": err, "out0": out, "gains0": gains}
 
 
 def phase_stitch_batch(mapper, frame_sets, ms_stitch):
@@ -1219,20 +1448,16 @@ def phase_stitch_batch(mapper, frame_sets, ms_stitch):
 
     # the frames-axis launches against their plain version, at B frames
     preps = [mapper._prep_yuv(fs) for fs in sets[:BATCH]]
-    err, times = 0.0, []
+    err = 0.0
     for k, group in ((0, mapper.plan.remap_groups[0]), (1, mapper.plan.remap_uv_groups[0])):
         planes = torch.stack([torch.stack(p[k]) for p in preps])
         got = cuda_remap.remap_apply_frames(planes, group, torch.float32)
         want = remap_apply_frames_reference(planes, group, torch.float32)
         err = max(err, max((a - b).abs().max().item() for a, b in zip(got, want)))
-        times.append(_time_kernel(planes, group, torch.bfloat16,
-                                  f"frames-axis launch, NC={k + 1}, B={BATCH}, bf16", frames=True))
-    t = _sum_times(*times)
-    log(f"  frames-axis launches (Y + U|V, B={BATCH}), kernel vs plain f32: max abs err {err:.3g}; "
-        f"bf16 kernel {t['ms']:.4f} ms, plain torch {t['plain_ms']:.4f} ms")
+    log(f"  frames-axis launches (Y + U|V, B={BATCH}), kernel vs plain f32: max abs err {err:.3g}")
     if not err < 1e-3:
         raise AssertionError("frames-axis kernel disagrees with its plain version")
-    return {"launches": counts["frames_nc1_bf16"] + counts["frames_nc2_bf16"], "err": err, **t}
+    return {"launches": counts["frames_nc1_bf16"] + counts["frames_nc2_bf16"], "err": err}
 
 
 def build_sharded_4k(mt, pipeline="yuv420"):
@@ -1336,22 +1561,18 @@ def phase_sharded(host, t_host, frame_sets, main_path):
     # kernel 6 at this path's own launches: every (input, band) pair
     bufs = sm._frames_to_device(one[0])
     ys, uvs = sm._prep_band_yuv(bufs)
-    err, times = 0.0, []
-    for nc, parts, group in ((1, ys, sm.plan.remap), (2, uvs, sm.plan.remap_uv)):
+    err = 0.0
+    for parts, group in ((ys, sm.plan.remap), (uvs, sm.plan.remap_uv)):
         src = concat_source(parts, frames=True)[0]
         k = cuda_remap.remap_apply(src, group, torch.float32)
         r = remap_apply_reference(src, group, torch.float32)
         err = max(err, max((a - b).abs().max().item() for a, b in zip(k, r)))
-        times.append(_time_kernel(src, group, torch.bfloat16,
-                                  f"sharded launch, NC={nc}, {len(group.src_h)} (input, band) pairs, bf16", nc=nc))
-    t = _sum_times(*times)
     log(f"  sharded launches (Y + U|V), kernel vs plain f32: max abs err {err:.3g} (bar < 1e-3)")
-    _traffic(((sm.plan.remap, 1), (sm.plan.remap_uv, 2)), t, "sharded launches (Y + U|V)")
     if not err < 1e-3:
         raise AssertionError("kernel 6 disagrees at the sharded path's launches")
     del ys, uvs, bufs
     profile(lambda fs: sm.stitch_batch([f[None] for f in fs]), sets, ms1)
-    return {"launches": counts1["concat_nc1_bf16"] + counts1["concat_nc2_bf16"], "err": err, **t}
+    return {"launches": counts1["concat_nc1_bf16"] + counts1["concat_nc2_bf16"], "err": err}
 
 
 def phase_sharded_rgb(host, t_host, frame_sets, rgb_path):
@@ -1413,16 +1634,13 @@ def phase_sharded_rgb(host, t_host, frame_sets, rgb_path):
     log(f"  sharded NC=3 launch, kernel vs plain f32: max abs err {err:.3g} (bar < 1e-3)")
     if not err < 1e-3:
         raise AssertionError("kernel 6 at NC=3 disagrees at the rgb sharded path's launch")
-    del k, r
-    t = _time_kernel(src, group, torch.bfloat16,
-                     f"sharded launch, NC=3, {len(group.src_h)} (input, band) pairs, bf16", nc=3)
-    del parts, src
+    del k, r, parts, src
     profile(lambda fs: sm.stitch_batch([f[None] for f in fs]), sets, ms)
-    return {"launches": counts["concat_nc3_bf16"], "err": err, **t}
+    return {"launches": counts["concat_nc3_bf16"], "err": err}
 
 
 _KERNEL_CLASSES = (
-    ("remap (csrc/remap.cu)", ("remap_kernel",)),
+    ("remap (csrc/remap.cu)", ("remap_kernel", "remap_frames_kernel")),
     ("matmul (pyramid, pooling)", ("gemm", "xmma", "cutlass")),
     ("dtype casts and copies", ("copy",)),
     ("reductions (gain sums)", ("reduce",)),
@@ -1469,9 +1687,14 @@ def profile(stitch, frame_sets, ms_frame):
         log(f"    {ms:9.4f} ms/frame  x{count:5.1f}  {key[:90]}")
 
 
-def main():
+def main(argv):
     t_start = time.time()
     smi = phase_env()
+    if argv[:1] == ["--time-remap"]:
+        pixels = [int(p) for p in argv[3].split(",")] if argv[2:3] == ["--pixels"] else None
+        return time_remap(argv[1], pixels)
+    if argv:
+        raise SystemExit(f"usage: chip_smoke.py [--time-remap ROOT [--pixels 1,2,4]], got {argv}")
     phase_build()
     err_small = phase_kernel_small()
 
@@ -1482,7 +1705,7 @@ def main():
     mt.create_masks()
     t_template = time.time() - t0
     err_cam = phase_kernel_4k_camera(mt)
-    err_nc3, t_single = phase_kernel_nc3(mt)
+    err_nc3 = phase_kernel_nc3(mt)
     phase_frames_axis()
     frame_sets = make_frame_sets()
     host, t_host = build_sharded_4k(mt)
@@ -1490,6 +1713,7 @@ def main():
     host_rgb, t_host_rgb = build_sharded_4k(mt, "rgb")
     err_concat_nc3 = phase_kernel_concat_nc3(host_rgb, frame_sets)
     taps = phase_mxu_taps()
+    times = phase_remap_device_time(mt, host, host_rgb)
     phase_small_rig()
     mixed_launches, err_mixed = phase_small_rig_options()
     phase_default_path()
@@ -1506,21 +1730,32 @@ def main():
     log("== summary")
     log(f"total run time {time.time() - t_start:.1f} s")
     log(f"card: {smi}")
+    log("4K remap launches, device ms: before (the replaced kernel, BEFORE_MS) -> now; call ms; grid_sample ms")
+    for key, t in times.items():
+        before = f"{BEFORE_MS[key]:.5f}" if key in BEFORE_MS else "not measured"
+        log(f"  {key:22s} {before} -> {t['ms']:.5f} (share {t['bound_ms'] / t['ms']:.3f}); call {t['call_ms']:.5f}; "
+            f"grid_sample {t['library_ms']:.5f}")
     src = "octvr_tpu_torch/csrc/remap.cu"
     taps_src = "octvr_tpu_torch/csrc/mxu_taps.cu"
     pr = "octvr_tpu/ops/pallas_remap.py"
     probe = "tools/mxu_taps_probe.py"
+    def timed(r, *keys):
+        return {**r, **_sum_times(*(times[k] for k in keys))}
+
     rows = [
-        ("remap NC=1 (yuv420 Y), kernel 1", src, f"{pr}:661", main_path["nc1"], max(err_small, err_cam)),
-        ("remap NC=2 (yuv420 U|V), kernel 2", src, f"{pr}:661", main_path["nc2"], max(err_small, err_cam)),
-        ("remap NC=3 (rgb, equal sizes), kernel 3", src, f"{pr}:661", rgb, err_nc3),
+        ("remap NC=1 (yuv420 Y), kernel 1", src, f"{pr}:661", timed(main_path["nc1"], "y_nc1_bf16"),
+         max(err_small, err_cam)),
+        ("remap NC=2 (yuv420 U|V), kernel 2", src, f"{pr}:661", timed(main_path["nc2"], "uv_nc2_bf16"),
+         max(err_small, err_cam)),
+        ("remap NC=3 (rgb, equal sizes), kernel 3", src, f"{pr}:661", timed(rgb, "rgb_nc3_bf16"), err_nc3),
         ("remap NC=3 single-input launch (rgb, mixed sizes), kernel 4", src, f"{pr}:352",
-         {"launches": mixed_launches, "err": err_nc3, **t_single}, err_mixed),
-        ("remap frames axis (stitch_batch), kernel 5", src, f"{pr}:1242", batch, 0.0),
+         timed({"launches": mixed_launches, "err": err_nc3}, "single_nc3_f32"), err_mixed),
+        ("remap frames kernel (stitch_batch), kernel 5", src, f"{pr}:1242",
+         timed(batch, "frames_y_nc1_bf16", "frames_uv_nc2_bf16"), 0.0),
         ("remap concat-source NC=1/2 (band-sharded yuv420, source windows), kernel 6", src, f"{pr}:1249",
-         sharded, err_concat),
+         timed(sharded, "sharded_nc1_bf16", "sharded_nc2_bf16"), err_concat),
         ("remap concat-source NC=3 (band-sharded rgb, source windows), kernel 6", src, f"{pr}:1249",
-         sharded_rgb, err_concat_nc3),
+         timed(sharded_rgb, "sharded_nc3_bf16"), err_concat_nc3),
         ("MXU-taps probe A, per-pixel gather (fan), kernel 8", taps_src, f"{probe}:100", taps["fan"], 0.0),
         ("MXU-taps probe B, folded f32 product, kernel 8", taps_src, f"{probe}:140", taps["mxu_folded"], 0.0),
         ("MXU-taps probe B2, exact bf16 selection products (tensor cores), kernel 8", taps_src,
@@ -1534,6 +1769,7 @@ def main():
         "launches": r["launches"],
         "max_abs_err": max(r["err"], extra),
         "ms": r["ms"],
+        "call_ms": r["call_ms"],
         "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"],
@@ -1547,4 +1783,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -1,14 +1,17 @@
-"""Wrapper of the Hopper remap kernel (csrc/remap.cu).
+"""Wrapper of the Hopper remap kernels (csrc/remap.cu).
 
-``remap_apply`` (one frame) and ``remap_apply_frames`` (B frames in one
-launch) take the plain torch version for a CPU tensor and launch the
-CUDA kernel for a CUDA tensor; there is no fallback from one to the
-other.  The source is a plain stack of planes or a flat run of source
-blocks (ops/remap.py ``concat_source``).  ``LAUNCHES`` counts kernel
-launches in all, and ``COUNTS`` per variant (``"nc3_bf16"``,
-``"frames_nc1_bf16"``, ``"concat_nc1_bf16"``, ``"frames_concat_nc2_bf16"``,
-...; "concat" when the inputs read camera-row slices), so a
-run can show that each of its paths went through its kernel.
+``remap_apply`` (one frame: ``remap_kernel``, ``PIXELS`` pixels per
+thread) and ``remap_apply_frames`` (B frames in one launch:
+``remap_frames_kernel``, which reads the plan once per batch) take the
+plain torch version for a CPU tensor and launch a CUDA kernel for a
+CUDA tensor; there is no fallback from one to the other.  The source is
+a plain stack of planes or a flat run of source blocks (ops/remap.py
+``concat_source``).  The kernels are the ``product`` library
+(utils/build.py).  ``LAUNCHES`` counts kernel launches in all, and
+``COUNTS`` per variant (``"nc3_bf16"``, ``"frames_nc1_bf16"``,
+``"concat_nc1_bf16"``, ``"frames_concat_nc2_bf16"``, ...; "concat" when
+the inputs read camera-row slices), so a run can show that each of its
+paths went through its kernel.
 """
 
 import ctypes
@@ -24,21 +27,33 @@ from .remap import (
     split_frame_outputs,
 )
 
-__all__ = ["COUNTS", "LAUNCHES", "launch_flat", "remap_apply", "remap_apply_frames", "reset_counts"]
+__all__ = [
+    "COUNTS",
+    "LAUNCHES",
+    "PIXELS",
+    "launch_flat",
+    "remap_apply",
+    "remap_apply_frames",
+    "reset_counts",
+]
 
 LAUNCHES = 0
 COUNTS = {}
 
+PIXELS = 2  # pixels per thread of the one-frame kernel (1, 2 or 4; PERF.md §6)
+
 _OUT_TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 8 + [
-    ctypes.c_int,
-    ctypes.c_int,
-    ctypes.c_longlong,
-    ctypes.c_longlong,
-    ctypes.c_longlong,
-    ctypes.c_int,
-    ctypes.c_void_p,
-]
+_PTRS = [ctypes.c_void_p] * 8
+_ARGTYPES = {
+    # (src, x0, y0, fx, fy, offsets, src_table, out, n_inputs, max_count,
+    # total, src_rows, W, pixels, stream)
+    False: _PTRS + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    # (..., out, n_frames, n_inputs, max_count, total, src_rows, W, stream)
+    True: _PTRS + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+}
+_ENTRIES = {}  # (nc, out dtype, frames) -> ctypes function
 
 
 def reset_counts():
@@ -48,19 +63,25 @@ def reset_counts():
     COUNTS.clear()
 
 
-def _entry(nc: int, out_dtype):
-    fn = getattr(load_library(), f"octvr_remap_nc{nc}_{_OUT_TAGS[out_dtype]}")
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+def _entry(nc: int, out_dtype, frames: bool):
+    key = (nc, out_dtype, frames)
+    fn = _ENTRIES.get(key)
+    if fn is None:
+        name = f"octvr_remap_{'frames_' if frames else ''}nc{nc}_{_OUT_TAGS[out_dtype]}"
+        fn = getattr(load_library("product"), name)
+        fn.argtypes = _ARGTYPES[frames]
         fn.restype = ctypes.c_int
+        _ENTRIES[key] = fn
     return fn
 
 
-def launch_flat(src, plan: RemapGroup, out_dtype=torch.float32, frames: bool = False):
+def launch_flat(src, plan: RemapGroup, out_dtype=torch.float32, frames: bool = False, pixels: int = None):
     """One kernel launch on a CUDA uint8 source (ops/remap.py
-    ``flat_source``; ``frames``: a leading frames axis).  Returns (the
-    flat output [B, C * total], C), which ``remap_apply`` and
-    ``remap_apply_frames`` split into per-input views."""
+    ``flat_source``; ``frames``: a leading frames axis, the frames
+    kernel).  ``pixels``: P of the one-frame kernel (default
+    ``PIXELS``).  Returns (the flat output [B, C * total], C), which
+    ``remap_apply`` and ``remap_apply_frames`` split into per-input
+    views."""
     if src.device.type != "cuda":
         raise ValueError(f"unsupported device {src.device}")
     if not src.is_contiguous():
@@ -68,33 +89,28 @@ def launch_flat(src, plan: RemapGroup, out_dtype=torch.float32, frames: bool = F
     flat, nc = flat_source(src, plan, frames)
     if out_dtype not in _OUT_TAGS:
         raise ValueError(f"out_dtype {out_dtype} not in (float32, bfloat16)")
+    dev = flat.device
     for t in (plan.x0, plan.y0, plan.fx, plan.fy, plan.offsets, plan.src_table):
-        if t.device != flat.device:
-            raise ValueError(f"plan on {t.device}, source on {flat.device}")
+        if t.device != dev:
+            raise ValueError(f"plan on {t.device}, source on {dev}")
+    pixels = PIXELS if pixels is None else pixels
+    if pixels not in (1, 2, 4):
+        raise ValueError(f"pixels per thread {pixels} not in (1, 2, 4)")
     b = flat.shape[0]
-    total = plan.starts[-1]
-    out = torch.empty((b, nc * total), dtype=out_dtype, device=flat.device)
-    max_count = max(e - s for s, e in zip(plan.starts[:-1], plan.starts[1:]))
-    if max_count == 0 or b == 0:
+    out = torch.empty((b, nc * plan.total), dtype=out_dtype, device=dev)
+    if plan.max_count == 0 or b == 0:
         return out, nc
-    with torch.cuda.device(flat.device):
-        err = _entry(nc, out_dtype)(
-            flat.data_ptr(),
-            plan.x0.data_ptr(),
-            plan.y0.data_ptr(),
-            plan.fx.data_ptr(),
-            plan.fy.data_ptr(),
-            plan.offsets.data_ptr(),
-            plan.src_table.data_ptr(),
-            out.data_ptr(),
-            b,
-            len(plan.out_shapes),
-            max_count,
-            total,
-            plan.src_rows,
-            plan.in_shape[1],
-            torch.cuda.current_stream().cuda_stream,
-        )
+    fn = _entry(nc, out_dtype, frames)
+    head = (
+        flat.data_ptr(), plan.x0.data_ptr(), plan.y0.data_ptr(), plan.fx.data_ptr(),
+        plan.fy.data_ptr(), plan.offsets.data_ptr(), plan.src_table.data_ptr(), out.data_ptr(),
+    )
+    shape = (len(plan.out_shapes), plan.max_count, plan.total, plan.src_rows, plan.in_shape[1])
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            err = _call(fn, head, shape, b, frames, pixels)
+    else:
+        err = _call(fn, head, shape, b, frames, pixels)
     if err != 0:
         raise RuntimeError(f"remap kernel launch failed: CUDA error {err}")
     global LAUNCHES
@@ -102,6 +118,13 @@ def launch_flat(src, plan: RemapGroup, out_dtype=torch.float32, frames: bool = F
     key = f"{'frames_' if frames else ''}{'concat_' if plan.concat else ''}nc{nc}_{_OUT_TAGS[out_dtype]}"
     COUNTS[key] = COUNTS.get(key, 0) + 1
     return out, nc
+
+
+def _call(fn, head, shape, b, frames, pixels):
+    stream = torch.cuda.current_stream().cuda_stream
+    if frames:
+        return fn(*head, b, *shape, stream)
+    return fn(*head, *shape, pixels, stream)
 
 
 def remap_apply(src, plan: RemapGroup, out_dtype=torch.float32, run: int = 1):
@@ -119,8 +142,8 @@ def remap_apply(src, plan: RemapGroup, out_dtype=torch.float32, run: int = 1):
 
 def remap_apply_frames(src, plan: RemapGroup, out_dtype=torch.float32, run: int = 1):
     """src: uint8 [B, N, C, H, W] or a flat [B, C*rows*W], B frames of
-    the group's inputs, in one launch.  Returns per input a
-    [B, C, rh, rw] view of one output buffer (per run of inputs
+    the group's inputs, in one launch of the frames kernel.  Returns per
+    input a [B, C, rh, rw] view of one output buffer (per run of inputs
     [B, run, C, rh, rw])."""
     if src.device.type == "cpu":
         return remap_apply_frames_reference(src, plan, out_dtype, run)

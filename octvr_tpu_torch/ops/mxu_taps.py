@@ -43,6 +43,7 @@ import ctypes
 import torch
 
 from ..utils.build import load_library
+from .pyramid import require_full_f32
 
 __all__ = [
     "COUNTS",
@@ -65,10 +66,6 @@ TH, TW = 8, 128  # a tile's output rows; lanes (pixels of a row, window columns)
 CHUNK = 16  # the fan's visit chunk (window rows)
 MAX_VISITED = 112  # visited rows the product kernels hold in shared memory
 _PLAIN_PIXELS = 1 << 19  # output pixels per chunk of the plain products (V: 256 MB)
-
-# the plain folded product runs in full f32 on the card, as the probe's
-# Precision.HIGHEST does on the TPU (TF32 would truncate the weights)
-torch.backends.cuda.matmul.allow_tf32 = False
 
 LAUNCHES = 0
 COUNTS = {}
@@ -178,7 +175,12 @@ def _onehot_t(oy, k):
 
 def mxu_folded_reference(oyl, fxy, win, lo: int, hi: int):
     """Plain version of B: the one-hot f32 W over the visited rows, the
-    dense product ``V = W^T R`` (f32, no TF32), the two horizontal taps."""
+    dense product ``V = W^T R``, the two horizontal taps.  The product
+    runs in full f32, as the probe's Precision.HIGHEST does on the TPU
+    (TF32 would truncate the weights): it raises if the process allows
+    TF32 (``ops.pyramid.require_full_f32``), and never changes that
+    setting."""
+    require_full_f32()
 
     def rows_fn(oy0, oy1, l0, l1, fx, fy, k, rows):
         n = oy0.shape[0]
@@ -228,7 +230,7 @@ def _launch(body, oyl, fxy, win, lo, hi):
         raise ValueError(f"{khi - klo} visited rows; the {body} kernel holds at most {MAX_VISITED}")
     n, g, kh = oyl.shape[0], oyl.shape[1], win.shape[2]
     out = torch.empty((g, n, TH, TW), dtype=torch.float32, device=oyl.device)
-    fn = getattr(load_library(), _ENTRIES[body])
+    fn = getattr(load_library("tools"), _ENTRIES[body])
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int

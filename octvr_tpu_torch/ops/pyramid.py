@@ -10,18 +10,34 @@ also leaves to XLA outside any Pallas kernel, so they go to
 
 Both operands are taken to f32 and the product runs in full f32, as
 JAX's ``preferred_element_type=float32`` does; bf16 operands are exact in
-f32.  TF32 is switched off here, explicitly, for matmuls and for cuDNN:
-it keeps about three decimal digits and would drift from the JAX
-package's f32 products.
+f32.  TF32 keeps about three decimal digits and would drift from the JAX
+package's f32 products, so every product first reads the process's
+matmul precision (``require_full_f32``) and raises if it is anything but
+"highest", PyTorch's default.  The port never writes that setting: it
+belongs to the host application.  Reading it is safe from any number of
+threads (the upload and drain threads of an asynchronous runtime); a
+set-and-restore around each product would not be, since two threads
+interleaving their saves and restores can leave TF32 on under one
+thread's products, and the application's own matmuls would change
+precision for the window.  cuDNN is not used here.
 """
 
 import numpy as np
 import torch
 
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
+__all__ = ["down_matrix", "pyr_down_mm", "pyr_up_mm", "require_full_f32", "up_matrix"]
 
-__all__ = ["down_matrix", "pyr_down_mm", "pyr_up_mm", "up_matrix"]
+
+def require_full_f32():
+    """Raises RuntimeError unless float32 matrix products run in full
+    f32 (``torch.get_float32_matmul_precision() == "highest"``, which
+    also means ``torch.backends.cuda.matmul.allow_tf32`` is False)."""
+    precision = torch.get_float32_matmul_precision()
+    if precision != "highest":
+        raise RuntimeError(
+            f"float32 matmul precision is {precision!r}: the port's f32 products "
+            "need 'highest' (no TF32); call torch.set_float32_matmul_precision('highest')"
+        )
 
 
 def down_matrix(n: int) -> np.ndarray:
@@ -55,6 +71,7 @@ def up_matrix(n: int) -> np.ndarray:
 
 def _banded(x, kv, kh):
     """kv @ x[c] @ kh.T for every channel, in f32."""
+    require_full_f32()
     v = torch.matmul(kv.float(), x.float())
     return torch.matmul(v, kh.float().T)
 

@@ -117,6 +117,8 @@ class RemapGroup:
     offsets: torch.Tensor  # int64 [N+1], on the plan's device
     src_table: torch.Tensor  # int64 [2N]: src_row0, then src_h
     starts: tuple  # host copy of offsets
+    total: int  # starts[-1]: output pixels of one channel of a frame
+    max_count: int  # the most output pixels of one input
     out_shapes: tuple  # per input (rh, rw)
     in_shape: tuple  # (H, W); H is None when the heights differ
     src_row0: tuple  # per input, its block's first row
@@ -167,6 +169,8 @@ def remap_group(plans, device, blocks=None, concat=None) -> RemapGroup:
         offsets=torch.from_numpy(starts).to(device),
         src_table=torch.tensor(src_row0 + src_h, dtype=torch.int64, device=device),
         starts=tuple(int(s) for s in starts),
+        total=int(starts[-1]),
+        max_count=int(np.diff(starts).max()),
         out_shapes=tuple(p.out_shape for p in plans),
         in_shape=(src_h[0] if len(set(src_h)) == 1 else None, width),
         src_row0=src_row0,

@@ -42,7 +42,7 @@ from scipy.ndimage import distance_transform_edt
 
 from ..ops.color import merge_nv12, merge_yuv420p, planes_to_rgb_planar, rgb_planar_to_planes
 from ..ops.cuda_remap import remap_apply, remap_apply_frames
-from ..ops.pyramid import down_matrix, pyr_down_mm, pyr_up_mm, up_matrix
+from ..ops.pyramid import down_matrix, pyr_down_mm, pyr_up_mm, require_full_f32, up_matrix
 from ..ops.remap import concat_source, remap_group, remap_plan
 from ..ops.resize import resize_bilinear_host
 from ..stitch.blenders import WEIGHT_EPS, np_pyr_down
@@ -1203,6 +1203,7 @@ class ShardedMapper:
         if S * gh < Hc:
             canvas = torch.nn.functional.pad(canvas, (0, 0, 0, Hc - S * gh))
         canvas = canvas[:, :, :Hc] * gbp.cover
+        require_full_f32()
         sums = torch.einsum(
             "siyaxb,jyaxb->syxij",
             canvas.reshape(S, n, nby, block, nbx, block),

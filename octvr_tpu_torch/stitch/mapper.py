@@ -36,6 +36,7 @@ from ..ops.color import (
     split_yuv420p,
 )
 from ..ops.cuda_remap import remap_apply, remap_apply_frames
+from ..ops.pyramid import require_full_f32
 from ..ops.remap import remap_group, remap_plan
 from ..ops.resize import resize_apply, resize_bilinear_host, resize_plan
 from ..template.compiler import MapperTemplate
@@ -69,6 +70,7 @@ def _pool_pow2(x, s, col_mat=None):
         while s0 > 1:
             x = (x[:, 0::2, :] + x[:, 1::2, :]) * 0.5
             s0 >>= 1
+        require_full_f32()
         return x @ col_mat
     while s > 1:
         x = (x[:, 0::2, :] + x[:, 1::2, :]) * 0.5
@@ -448,11 +450,18 @@ class Mapper:
                 self.in_sizes[i] = g.in_shape
 
     def _remap_dtype(self):
-        """Multiband takes its compute dtype straight out of the kernel;
-        the other blends take f32."""
-        if self.plan.blend_kind == "multiband":
-            return getattr(torch, self.plan.blender.compute_dtype)
-        return torch.float32
+        """The kernel's store dtype, the JAX Mapper's: multiband takes
+        its compute dtype straight out of the kernel where the JAX
+        package batches the remap (every yuv420 size group; an rgb rig of
+        one size).  An rgb rig of mixed sizes stores f32, as the JAX
+        package's single-input kernel does (octvr_tpu/stitch/mapper.py:
+        498-502): its gains, gain maps and overlay pastes then apply in
+        f32, and multiband_blend casts to the compute dtype.  The other
+        blends take f32."""
+        plan = self.plan
+        if plan.blend_kind != "multiband" or (plan.pipeline == "rgb" and len(plan.group_idx) > 1):
+            return torch.float32
+        return getattr(torch, plan.blender.compute_dtype)
 
     def _split(self, buf):
         return (split_nv12 if self.frame_format == "nv12" else split_yuv420p)(buf)
@@ -519,11 +528,10 @@ class Mapper:
         [B, C, H, W] stack of B frames, which the kernel's frames axis
         remaps in the same one launch.  For equal sizes this is the JAX
         package's batched kernel; for mixed sizes the JAX package
-        launches its single-input kernel per input and stores f32, where
-        the port launches once per size group, and a group of one input
-        is that launch's shape.  A bf16 store rounds to nearest even
-        from the same f32 sum, exactly as the JAX package's later cast
-        to the multiband compute dtype does, so one rule serves both."""
+        launches its single-input kernel per input, where the port
+        launches once per size group, and a group of one input is that
+        launch's shape.  ``dtype`` is the store dtype the JAX package
+        uses on the same path (``_remap_dtype``)."""
         apply = remap_apply_frames if frames else remap_apply
         warped = [None] * len(planes)
         for idxs, g in zip(self.plan.group_idx, groups):

@@ -1,11 +1,20 @@
 """Build and load the package's CUDA kernels (``octvr_tpu_torch/csrc``).
 
-nvcc compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, loaded with ``ctypes``: a few seconds per build, against
-minutes for ``torch.utils.cpp_extension.load`` (whose sources include
-PyTorch's headers).  The build happens at first use, into
-``build/octvr_tpu_torch/`` at the root of the checkout, and is cached by
-a hash of the sources and flags.  Nothing here runs at import time.
+The sources fall in two groups, each built into a shared library of its
+own with a plain C interface and loaded with ``ctypes`` by name
+(``load_library(group)``):
+
+- ``product``: ``remap.cu``, the remap kernels of every stitch path;
+- ``tools``: ``mxu_taps.cu``, the MXU-taps probe's kernels (an
+  instrument, off every product path).
+
+So a fault in a tool's source never breaks the product, and the
+product's first build compiles only its own source.  nvcc takes a few
+seconds per library, against minutes for ``torch.utils.cpp_extension.load``
+(whose sources include PyTorch's headers).  A library is built at first
+use into ``build/octvr_tpu_torch/`` at the root of the checkout, and
+cached by a hash of its own group's sources and the flags.  Nothing here
+runs at import time.
 """
 
 import ctypes
@@ -15,10 +24,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_dir", "library_path", "load_library"]
+__all__ = ["GROUPS", "NVCC_FLAGS", "build_dir", "library_path", "load_library"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
+
+GROUPS = {"product": ("remap.cu",), "tools": ("mxu_taps.cu",)}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -26,7 +37,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_LIB = None
+_LIBS = {}
 
 
 def build_dir() -> Path:
@@ -44,43 +55,46 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (not on PATH, no CUDA_HOME/bin/nvcc)")
 
 
-def _sources():
-    srcs = sorted(_CSRC.glob("*.cu"))
-    if not srcs:
-        raise RuntimeError(f"no CUDA sources under {_CSRC}")
+def _sources(group: str):
+    if group not in GROUPS:
+        raise ValueError(f"unknown kernel group {group!r}, not in {sorted(GROUPS)}")
+    srcs = [_CSRC / name for name in GROUPS[group]]
+    missing = [str(s) for s in srcs if not s.exists()]
+    if missing:
+        raise RuntimeError(f"missing CUDA sources of group {group!r}: {missing}")
     return srcs
 
 
-def library_path() -> Path:
-    """Path of the shared library for the current sources and flags."""
+def library_path(group: str) -> Path:
+    """Path of ``group``'s shared library for its current sources and
+    the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in _sources():
+    for s in _sources(group):
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    return build_dir() / f"liboctvr_kernels_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"liboctvr_{group}_{h.hexdigest()[:16]}.so"
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (if the cached library is missing) and load the kernels.
-    Raises if nvcc is missing or the build fails; the compiler's output,
-    register and spill counts included, is kept beside the library as
-    ``<name>.log``."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    lib = library_path()
+def load_library(group: str) -> ctypes.CDLL:
+    """Build (if the cached library is missing) and load ``group``'s
+    kernels.  Raises if nvcc is missing or the build fails; the
+    compiler's output, register and spill counts included, is kept
+    beside the library as ``<name>.log``."""
+    if group in _LIBS:
+        return _LIBS[group]
+    lib = library_path(group)
     if not lib.exists():
         lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources(group))]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         lib.with_suffix(".log").write_text(
             " ".join(cmd) + "\n" + proc.stdout + proc.stderr
         )
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+                f"nvcc failed on group {group!r} ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, lib)  # atomic: a concurrent process never loads half a file
-    _LIB = ctypes.CDLL(str(lib))
-    return _LIB
+    _LIBS[group] = ctypes.CDLL(str(lib))
+    return _LIBS[group]

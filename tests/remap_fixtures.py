@@ -47,3 +47,13 @@ def concat_maps():
     m2b[5:9, 40:80] = -1
     m2b_s = np.where(m2b < 0, -1.0, ((m2b * IN_H) - LO) / H_B).astype(np.float32)
     return (m1a, m2a), (m1b, m2b), (m1b, m2b_s)
+
+
+def ragged_maps():
+    """Maps of four inputs on the 96x256 source whose pixel counts and
+    segment starts are no multiple of 2 or 4 (the one-frame kernel's
+    pixels per thread): arcs at 53x101, one valid pixel, an all-invalid
+    3x7 map, and the edge-clamp maps."""
+    one = np.full((1, 1), 0.37, np.float32)
+    dead = np.full((3, 7), -1.0, np.float32)
+    return [arc_maps(53, 101), (one, one + 0.2), (dead, dead), edge_maps()]

@@ -48,3 +48,19 @@ def test_mixed_sizes_match_jax(mixed, pipeline):
     _assert_close(out, np.asarray(ref))
     assert np.abs(g.numpy() - np.asarray(g_ref)).max() < 1e-3
     assert g[0] < 1.0 < g[1]  # the gains counteract the exposure skew
+
+
+@pytest.mark.parametrize("enable_gain", [True, "blocks"])
+def test_mixed_sizes_rgb_bf16_match_jax(mixed, enable_gain):
+    """The rgb Mapper with a bf16 blend on mixed sizes: the JAX Mapper
+    remaps each input into f32 there, applies the gains (or the blocks
+    gain maps) in f32 and casts inside the blend; so does the port, at
+    the same bars."""
+    mt, sizes, frames = mixed
+    kw = {"blend": 16, "enable_gain": enable_gain, "pipeline": "rgb", "blend_dtype": "bfloat16"}
+    ref, g_ref = JaxMapper(mt, sizes, **kw).stitch(frames)
+    m = Mapper(mt, sizes, device="cpu", **kw)
+    assert m.plan.blender.compute_dtype == "bfloat16" and m._remap_dtype() == torch.float32
+    out, g = m.stitch(frames)
+    _assert_close(out, np.asarray(ref))
+    assert np.abs(g.numpy() - np.asarray(g_ref)).max() < 1e-3

@@ -1,5 +1,7 @@
-"""Port tests that need an NVIDIA card: the CUDA remap kernel (NC=1, 2
-and 3, one frame or a frames axis, stacked or concat sources) and the
+"""Port tests that need an NVIDIA card: the CUDA remap kernels (NC=1, 2
+and 3; the one-frame kernel at 1, 2 and 4 pixels per thread on ragged
+inputs; the frames kernel against one-frame launches; stacked or concat
+sources; a CUDA-graph replay) and the
 three kernels of the MXU-taps probe (kernel 8) against their plain
 torch versions, and the port's Mapper and ShardedMapper (every option
 group) on the card against the port on the CPU.  They carry the
@@ -21,12 +23,13 @@ from octvr_tpu_torch.ops.remap import (
     remap_apply_reference,
     remap_group,
     remap_plan,
+    split_frame_outputs,
 )
 from octvr_tpu_torch.parallel import ShardedMapper, make_mesh
 from octvr_tpu_torch.stitch import FastMapper, Mapper
 from octvr_tpu_torch.template import compile_rig
 from octvr_tpu_torch.tools.mxu_taps_probe import make_probe_inputs
-from remap_fixtures import H_B, IN_H, IN_W, LO, arc_maps, concat_maps, edge_maps
+from remap_fixtures import H_B, IN_H, IN_W, LO, arc_maps, concat_maps, edge_maps, ragged_maps
 from rigs import two_fisheye_rig
 from taps_fixtures import edge_probe_inputs
 
@@ -95,6 +98,88 @@ def test_frames_axis_equals_separate_launches(cuda_device, nc):
         for g, one in zip(got, cuda_remap.remap_apply(planes[b], group, torch.bfloat16)):
             assert torch.equal(g[b], one)
     assert cuda_remap.COUNTS[f"nc{nc}_bf16"] == 3 and cuda_remap.LAUNCHES == 4
+
+
+def _ragged(device, nc, seed, frames=None):
+    group = remap_group([remap_plan(*m, IN_H, IN_W) for m in ragged_maps()], device)
+    n = len(group.out_shapes)
+    rng = np.random.default_rng(seed)
+    shape = (n, nc, IN_H, IN_W) if frames is None else (frames, n, nc, IN_H, IN_W)
+    return group, torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(device)
+
+
+@pytest.mark.parametrize("nc", [1, 2, 3])
+def test_one_frame_kernel_ragged_inputs(cuda_device, nc):
+    """The one-frame kernel at P = 1, 2 and 4 pixels per thread on inputs
+    whose counts and starts are no multiple of P (a 1-pixel input, an
+    all-invalid one, the edge-clamp maps): f32 within 1e-3 of the plain
+    version, exact zeros where invalid, the bf16 store equal to the cast
+    f32 store, and every P bit-identical to P = 1."""
+    group, planes = _ragged(cuda_device, nc, 80 + nc)
+    assert [s % 4 for s in group.starts[1:-1]] != [0] * (len(group.starts) - 2)
+    ref = remap_apply_reference(planes, group, torch.float32)
+    assert ref[2].abs().max().item() == 0.0
+    cuda_remap.reset_counts()
+    by_p = {}
+    for p in (1, 2, 4):
+        k32, _ = cuda_remap.launch_flat(planes, group, torch.float32, pixels=p)
+        k16, _ = cuda_remap.launch_flat(planes, group, torch.bfloat16, pixels=p)
+        by_p[p] = (k32, k16)
+        got = split_frame_outputs(k32, group, nc)
+        for g, r in zip(got, ref):
+            assert (g[0] - r).abs().max().item() < 1e-3
+        assert torch.equal(k16, k32.to(torch.bfloat16))
+        assert got[2].abs().max().item() == 0.0
+    torch.cuda.synchronize()
+    assert cuda_remap.COUNTS == {f"nc{nc}_f32": 3, f"nc{nc}_bf16": 3}
+    for p in (2, 4):
+        assert torch.equal(by_p[p][0], by_p[1][0]) and torch.equal(by_p[p][1], by_p[1][1])
+    with pytest.raises(ValueError, match="pixels per thread"):
+        cuda_remap.launch_flat(planes, group, torch.float32, pixels=3)
+
+
+@pytest.mark.parametrize("frames", [1, 3, 4, 5])
+@pytest.mark.parametrize("source", ["ragged", "concat"])
+@pytest.mark.parametrize("nc", [1, 2, 3])
+def test_frames_kernel_equals_one_frame_launches(cuda_device, nc, source, frames):
+    """The frames kernel over B frames gives, bit for bit, what B
+    one-frame launches give, f32 and bf16, on ragged inputs and on
+    concat sources; one frames launch counted per call."""
+    if source == "ragged":
+        group, src = _ragged(cuda_device, nc, 90 + nc, frames=frames)
+    else:
+        group, src = _concat_case(cuda_device, nc, 95 + nc, frames=frames)
+    tag = "concat_" if source == "concat" else ""
+    for dtype in (torch.float32, torch.bfloat16):
+        cuda_remap.reset_counts()
+        got = cuda_remap.remap_apply_frames(src, group, dtype)
+        assert cuda_remap.COUNTS == {f"frames_{tag}nc{nc}_{str(dtype)[6:].replace('float', 'f')}": 1}
+        for b in range(frames):
+            for g, one in zip(got, cuda_remap.remap_apply(src[b], group, dtype)):
+                assert torch.equal(g[b], one)
+
+
+def test_graph_replay_equals_eager(cuda_device):
+    """One-frame and frames launches captured in a CUDA graph and
+    replayed give the eager launches' outputs bit for bit."""
+    group, planes = _ragged(cuda_device, 3, 99, frames=2)
+    eager = [cuda_remap.launch_flat(planes[0], group, torch.bfloat16)[0],
+             cuda_remap.launch_flat(planes, group, torch.bfloat16, frames=True)[0]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_remap.launch_flat(planes[0], group, torch.bfloat16)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [cuda_remap.launch_flat(planes[0], group, torch.bfloat16)[0],
+                cuda_remap.launch_flat(planes, group, torch.bfloat16, frames=True)[0]]
+    for o in outs:
+        o.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for o, e in zip(outs, eager):
+        assert torch.equal(o, e)
 
 
 def _small_rig(device):

@@ -121,6 +121,20 @@ def test_remap_matches_paired_pallas_kernel(nc):
     assert np.abs(np.asarray(ref) - got.numpy()).max() < 1e-3
 
 
+def test_remap_group_precomputes_launch_shape():
+    """The launch's pixel counts are host ints of the group, computed
+    once: ``total`` output pixels of a channel, ``max_count`` of the
+    largest input."""
+    pa = remap_plan(*_arc_maps(64, 256), IN_H, IN_W)
+    pb = remap_plan(*edge_maps(), IN_H, IN_W)
+    one = np.zeros((1, 1), np.float32)
+    pc = remap_plan(one + 0.5, one + 0.5, IN_H, IN_W)
+    group = remap_group([pa, pb, pc], "cpu")
+    counts = [pa.x0.size, pb.x0.size, 1]
+    assert group.total == sum(counts) == group.starts[-1] == int(group.offsets[-1])
+    assert group.max_count == max(counts) and isinstance(group.max_count, int)
+
+
 def test_remap_wrapper_takes_plain_version_on_cpu():
     m1, m2 = _arc_maps(64, 256)
     group = remap_group([remap_plan(m1, m2, IN_H, IN_W)], "cpu")
@@ -149,8 +163,23 @@ def test_pyramid_products_match_jax():
     ref = np.asarray(jpyr.pyr_up_mm(jnp.asarray(ref), uv, uh))
     got = pyramid.pyr_up_mm(got, torch.from_numpy(uv), torch.from_numpy(uh))
     assert np.abs(got.numpy() - ref).max() < 1e-3
+    # importing the port leaves the process's TF32 settings as it set them
+    code = (
+        "import torch; torch.set_float32_matmul_precision('high'); "
+        "import octvr_tpu_torch.parallel, octvr_tpu_torch.ops.mxu_taps, octvr_tpu_torch.tools.mxu_taps_probe; "
+        "assert torch.get_float32_matmul_precision() == 'high' and torch.backends.cuda.matmul.allow_tf32"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
+    # under TF32 the products raise instead of running, and leave the setting alone
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        with pytest.raises(RuntimeError, match="highest"):
+            pyramid.pyr_down_mm(torch.from_numpy(x), torch.from_numpy(kv), torch.from_numpy(kh))
+        assert torch.get_float32_matmul_precision() == "high" and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision(before)
     assert not torch.backends.cuda.matmul.allow_tf32
-    assert not torch.backends.cudnn.allow_tf32
 
 
 def test_yuv420p_split_merge_match_jax():
