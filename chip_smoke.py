@@ -43,8 +43,7 @@ Phases, each failing the run on any error:
         its bound (bytes over 3.35 TB/s, or f32 flops over 67 TFLOP/s if
         larger) and share, and the device ms of
         torch.nn.functional.grid_sample on the same shapes (the library
-        yardstick), beside the replaced kernel's device ms
-        (``BEFORE_MS``);
+        yardstick);
   4. small rigs (two fisheyes, 512x256): the port on CUDA in f32 against
      the port on the CPU, and bf16 against f32 on CUDA;
      b. every Mapper option on both pipelines, FastMapper, and a
@@ -86,12 +85,12 @@ not the kernel.  The line before the last is a JSON summary of the
 kernels; the last line is {"ok": true, "device": {...}}.  Imports no
 JAX.
 
-    python3 chip_smoke.py --time-remap ROOT [--pixels 1,2,4]
+    python3 chip_smoke.py --time-remap ROOT
 
 times only the 4K remap launches (phase 3h's rows, device and call ms)
 of the package in the checkout at ROOT and prints them as one JSON line:
 run it on two checkouts in turns, in one call on one card, to compare
-their kernels.
+their kernels (an earlier commit's, or an edited copy of remap.cu).
 """
 
 import importlib.util
@@ -370,9 +369,8 @@ def _grid_sample_ms(flat, group, nc):
     return ms
 
 
-def _time_kernel(src, group, dtype, label, frames=False, pixels=None, full=True):
-    """Times of one raw launch (``launch_flat``; ``pixels``: P of the
-    one-frame kernel, default the wrapper's): ``ms``, its device time
+def _time_kernel(src, group, dtype, label, frames=False, full=True):
+    """Times of one raw launch (``launch_flat``): ``ms``, its device time
     (``device_ms``), and ``call_ms``, the eager call's time
     (``steady_ms``), which below ~50 MB reads the host path of
     ``launch_flat``.  With ``full`` also the plain version's ms, the
@@ -382,10 +380,8 @@ def _time_kernel(src, group, dtype, label, frames=False, pixels=None, full=True)
     from octvr_tpu_torch.ops import cuda_remap
     from octvr_tpu_torch.ops.remap import flat_source, remap_apply_frames_reference, remap_apply_reference
 
-    kw = {} if pixels is None else {"pixels": pixels}
-
     def launch():
-        cuda_remap.launch_flat(src, group, dtype, frames=frames, **kw)
+        cuda_remap.launch_flat(src, group, dtype, frames=frames)
 
     ms, ms_lo, ms_hi = device_ms(launch)
     call = steady_ms(launch)[0]
@@ -685,51 +681,16 @@ def remap_rows(mt, host, host_rgb):
     return rows
 
 
-# Device ms (``device_ms``) of each row of ``remap_rows`` on the one
-# thread per pixel kernel that remap_kernel and remap_frames_kernel
-# replaced (its frames axis: one frame per blockIdx.z), timed by
-# ``python3 chip_smoke.py --time-remap <a checkout of that kernel>`` on
-# an NVIDIA H100 80GB HBM3 at 700 W, the mean of two runs in one call
-# (PERF.md §6).
-BEFORE_MS = {
-    "cam0_nc1_f32": 0.008827,
-    "cam0_nc2_f32": 0.004197,
-    "single_nc3_f32": 0.025613,
-    "band1_nc1_f32": 0.064162,
-    "band1_nc2_f32": 0.022408,
-    "rgb_band1_nc3_f32": 0.112698,
-    "cam0_nc1_bf16": 0.008765,
-    "cam0_nc2_bf16": 0.004167,
-    "single_nc3_bf16": 0.022111,
-    "band1_nc1_bf16": 0.060726,
-    "band1_nc2_bf16": 0.017555,
-    "rgb_band1_nc3_bf16": 0.099664,
-    "y_nc1_bf16": 0.138465,
-    "uv_nc2_bf16": 0.045737,
-    "rgb_nc3_bf16": 0.241982,
-    "frames_y_nc1_bf16": 0.546424,
-    "frames_uv_nc2_bf16": 0.176221,
-    "sharded_nc1_bf16": 0.213898,
-    "sharded_nc2_bf16": 0.067753,
-    "sharded_nc3_bf16": 0.332530,
-}
-
-
 def phase_remap_device_time(mt, host, host_rgb):
     """Every 4K remap row (``remap_rows``) timed as device time: the
-    kernel, its eager call, its plain version, grid_sample, the bound,
-    beside the replaced kernel's device time (``BEFORE_MS``).  Returns
-    {key: times}."""
+    kernel, its eager call, its plain version, grid_sample, the bound.
+    Returns {key: times}."""
     log("== 3h. device time of every 4K remap launch (CUDA graph of K launches, median of 5 replays)")
     t0 = time.time()
     rows = remap_rows(mt, host, host_rgb)
     times = {}
     for key, (label, src, group, dtype, frames) in rows.items():
-        times[key] = t = _time_kernel(src, group, dtype, label, frames=frames)
-        if key in BEFORE_MS:
-            log(f"    before {BEFORE_MS[key]:.5f} ms -> now {t['ms']:.5f} ms ({BEFORE_MS[key] / t['ms']:.2f}x); "
-                f"share {t['bound_ms'] / BEFORE_MS[key]:.3f} -> {t['bound_ms'] / t['ms']:.3f}; "
-                f"grid_sample {t['library_ms']:.5f} ms")
+        times[key] = _time_kernel(src, group, dtype, label, frames=frames)
     for keys, label in (
         (("y_nc1_bf16", "uv_nc2_bf16"), "Mapper launches (Y + U|V)"),
         (("frames_y_nc1_bf16", "frames_uv_nc2_bf16"), f"frames launches (Y + U|V, B={BATCH})"),
@@ -740,11 +701,9 @@ def phase_remap_device_time(mt, host, host_rgb):
     return times
 
 
-def time_remap(root, pixels):
+def time_remap(root):
     """``--time-remap ROOT``: device and call ms of every ``remap_rows``
-    launch of the package at ROOT (``pixels``: also at each P of the
-    one-frame kernel, where that package's ``launch_flat`` takes it),
-    printed as one JSON line.  Two checkouts are compared by running this
+    launch of the package at ROOT, printed as one JSON line.  Two checkouts are compared by running this
     on each, in turns, in one call on one card."""
     sys.path.insert(0, os.path.abspath(root))
     import octvr_tpu_torch
@@ -756,14 +715,10 @@ def time_remap(root, pixels):
     host, _ = build_sharded_4k(mt)
     host_rgb, _ = build_sharded_4k(mt, "rgb")
     rows = remap_rows(mt, host, host_rgb)
-    result = {}
-    for p in pixels or [None]:
-        for key, (label, src, group, dtype, frames) in rows.items():
-            if frames and pixels and p != pixels[0]:
-                continue
-            t = _time_kernel(src, group, dtype, f"{label}{'' if p is None else f', P={p}'}",
-                             frames=frames, pixels=None if frames else p, full=False)
-            result[key if p is None else f"{key}@P{p}"] = t
+    result = {
+        key: _time_kernel(src, group, dtype, label, frames=frames, full=False)
+        for key, (label, src, group, dtype, frames) in rows.items()
+    }
     print(json.dumps({"root": os.path.abspath(root), "rows": result}))
 
 
@@ -1690,11 +1645,10 @@ def profile(stitch, frame_sets, ms_frame):
 def main(argv):
     t_start = time.time()
     smi = phase_env()
-    if argv[:1] == ["--time-remap"]:
-        pixels = [int(p) for p in argv[3].split(",")] if argv[2:3] == ["--pixels"] else None
-        return time_remap(argv[1], pixels)
+    if len(argv) == 2 and argv[0] == "--time-remap":
+        return time_remap(argv[1])
     if argv:
-        raise SystemExit(f"usage: chip_smoke.py [--time-remap ROOT [--pixels 1,2,4]], got {argv}")
+        raise SystemExit(f"usage: chip_smoke.py [--time-remap ROOT], got {argv}")
     phase_build()
     err_small = phase_kernel_small()
 
@@ -1730,10 +1684,9 @@ def main(argv):
     log("== summary")
     log(f"total run time {time.time() - t_start:.1f} s")
     log(f"card: {smi}")
-    log("4K remap launches, device ms: before (the replaced kernel, BEFORE_MS) -> now; call ms; grid_sample ms")
+    log("4K remap launches: device ms (share of bound); call ms; grid_sample device ms")
     for key, t in times.items():
-        before = f"{BEFORE_MS[key]:.5f}" if key in BEFORE_MS else "not measured"
-        log(f"  {key:22s} {before} -> {t['ms']:.5f} (share {t['bound_ms'] / t['ms']:.3f}); call {t['call_ms']:.5f}; "
+        log(f"  {key:22s} {t['ms']:.5f} ({t['bound_ms'] / t['ms']:.3f}); call {t['call_ms']:.5f}; "
             f"grid_sample {t['library_ms']:.5f}")
     src = "octvr_tpu_torch/csrc/remap.cu"
     taps_src = "octvr_tpu_torch/csrc/mxu_taps.cu"

@@ -29,8 +29,8 @@
 // even for bf16).  Taps are plain loads, not texture filtering: a
 // texture's clamp and 8-bit weights would break the contract.  The
 // arithmetic is written with _rn intrinsics (taps_of, blend), so the
-// compiler has no contraction to choose: both kernels, every P and
-// every frame count give the same bits for the same pixel.
+// compiler has no contraction to choose: both kernels and every frame
+// count give the same bits for the same pixel.
 //
 // What bounds them: memory.  A valid pixel reads 16 B of plan (x0, y0,
 // fx, fy) and stores 4 or 2 B per channel; an invalid one reads 4 B
@@ -39,21 +39,21 @@
 // is a byte gather of its own.  The one-pixel-per-thread kernel these
 // replace moved 1.5-2.1 TB/s of the card's 3.35 TB/s of device bytes.
 // The design:
-//   - remap_kernel (one frame) gives each thread P pixels of one input,
-//     P blocks of the block's width apart, so that each load and store
+//   - remap_kernel (one frame) gives each thread kPixels = 2 pixels of
+//     one input, a block's width apart, so that each load and store
 //     instruction of a warp still covers 32 neighbouring pixels (128 B
-//     of each plan array).  A thread starts all P x0 loads, then the
-//     y0/fx/fy loads of its valid pixels, then all 4*NC*P gathers, then
-//     its stores: P times the bytes in flight per thread.  An invalid
+//     of each plan array).  A thread starts both x0 loads, then the
+//     y0/fx/fy loads of its valid pixels, then all 4*NC*2 gathers, then
+//     its stores: twice the bytes in flight per thread.  An invalid
 //     pixel still reads only its x0.  No alignment is assumed, so no
 //     plan padding is needed and the output layout is unchanged.
-//     Measured on an H100 (PERF.md §6), P = 2 is the fastest on most
-//     launches, by up to 12% over P = 1; at P = 4 ptxas takes 64-96
-//     registers and the resident blocks fall, so pixels in flight per SM
-//     hardly grow.  The wrapper launches P = 2.  Its share of the byte
-//     bound falls as NC grows (0.57 at NC=1, 0.46 at NC=3), with the
-//     byte gathers per plan byte, so the likelier limit is the gathers'
-//     L1/L2 traffic (an inference: no hardware counters were read).
+//     Measured on an H100 (PERF.md §6), 2 pixels per thread beat 1 by
+//     up to 12%; at 4 ptxas takes 64-96 registers and the resident
+//     blocks fall, so pixels in flight per SM hardly grow.  The share of
+//     the byte bound falls as NC grows (0.57 at NC=1, 0.46 at NC=3),
+//     with the byte gathers per plan byte, so the likelier limit is the
+//     gathers' L1/L2 traffic (an inference: no hardware counters were
+//     read).
 //   - remap_frames_kernel (B frames) gives each thread one pixel: it
 //     reads the pixel's plan entry once and loops over the B frames,
 //     gathering and storing each frame's NC outputs.  The plan is read
@@ -78,8 +78,10 @@
 // out[NC*off[i] : NC*off[i+1]], laid out [NC, rh, rw]; frame b's output
 // starts at b * NC * total.  blockIdx.y picks the input.  Offsets
 // within one channel of a frame's source (src_rows * W < 2^31) and
-// pixel counts per input (< 2^31) are 32-bit; frame, source-block and
-// output offsets are 64-bit.
+// pixel indices within an input (max_count <= 2^31 - 1 - kPixels *
+// kThreads, so the last block's indices fit) are 32-bit; frame,
+// source-block and output offsets are 64-bit.  A launch past these
+// limits is refused (cudaErrorInvalidValue).
 
 #include <cstdint>
 
@@ -89,6 +91,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kPixels = 2;  // pixels per thread of remap_kernel
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
@@ -157,13 +160,15 @@ __device__ __forceinline__ void blend(const Texels<NC>& x, const Taps& t,
 }
 
 // One frame.  Block (x, i) covers pixels [x*P*kThreads, (x+1)*P*kThreads)
-// of input i; thread t takes pixels x*P*kThreads + k*kThreads + t.
-template <int NC, typename OutT, int P>
+// of input i, P = kPixels; thread t takes pixels x*P*kThreads +
+// k*kThreads + t.
+template <int NC, typename OutT>
 __global__ void __launch_bounds__(kThreads) remap_kernel(
     const uint8_t* __restrict__ src, const int32_t* __restrict__ x0s,
     const int32_t* __restrict__ y0s, const float* __restrict__ fxs,
     const float* __restrict__ fys, const int64_t* __restrict__ offsets,
     const int64_t* __restrict__ src_table, OutT* __restrict__ out, int W) {
+  constexpr int P = kPixels;
   const int i = blockIdx.y;
   const int64_t start = offsets[i];
   const int count = (int)(offsets[i + 1] - start);
@@ -253,48 +258,30 @@ __global__ void __launch_bounds__(kThreads) remap_frames_kernel(
   }
 }
 
+// The last block's pixel indices (below max_count + kPixels * kThreads)
+// must fit an int, and so must one channel of a frame's source.
 bool bad_shape(int n_inputs, long long max_count, long long total,
                long long src_rows, int W) {
   return n_inputs <= 0 || n_inputs > 65535 || max_count <= 0 ||
-         max_count > 0x7fffffffLL || total < max_count || src_rows <= 0 ||
-         W <= 0 || src_rows * W > 0x7fffffffLL;
-}
-
-template <int NC, typename OutT, int P>
-int launch_one(const void* src, const void* x0, const void* y0,
-               const void* fx, const void* fy, const void* offsets,
-               const void* src_table, void* out, int n_inputs,
-               long long max_count, int W, cudaStream_t stream) {
-  const long long blocks = (max_count + P * kThreads - 1) / (P * kThreads);
-  const dim3 grid((unsigned)blocks, (unsigned)n_inputs);
-  remap_kernel<NC, OutT, P><<<grid, kThreads, 0, stream>>>(
-      (const uint8_t*)src, (const int32_t*)x0, (const int32_t*)y0,
-      (const float*)fx, (const float*)fy, (const int64_t*)offsets,
-      (const int64_t*)src_table, (OutT*)out, W);
-  return (int)cudaGetLastError();
+         max_count > 0x7fffffffLL - kPixels * kThreads ||
+         total < max_count || src_rows <= 0 || W <= 0 ||
+         src_rows * W > 0x7fffffffLL;
 }
 
 template <int NC, typename OutT>
 int launch(const void* src, const void* x0, const void* y0, const void* fx,
            const void* fy, const void* offsets, const void* src_table,
            void* out, int n_inputs, long long max_count, long long total,
-           long long src_rows, int W, int pixels, void* stream) {
+           long long src_rows, int W, void* stream) {
   if (bad_shape(n_inputs, max_count, total, src_rows, W))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (pixels) {
-    case 1:
-      return launch_one<NC, OutT, 1>(src, x0, y0, fx, fy, offsets, src_table,
-                                     out, n_inputs, max_count, W, s);
-    case 2:
-      return launch_one<NC, OutT, 2>(src, x0, y0, fx, fy, offsets, src_table,
-                                     out, n_inputs, max_count, W, s);
-    case 4:
-      return launch_one<NC, OutT, 4>(src, x0, y0, fx, fy, offsets, src_table,
-                                     out, n_inputs, max_count, W, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const long long span = kPixels * kThreads;
+  const dim3 grid((unsigned)((max_count + span - 1) / span), (unsigned)n_inputs);
+  remap_kernel<NC, OutT><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)src, (const int32_t*)x0, (const int32_t*)y0,
+      (const float*)fx, (const float*)fy, (const int64_t*)offsets,
+      (const int64_t*)src_table, (OutT*)out, W);
+  return (int)cudaGetLastError();
 }
 
 template <int NC, typename OutT>
@@ -317,19 +304,18 @@ int launch_frames(const void* src, const void* x0, const void* y0,
 }  // namespace
 
 // Plain C entry points, one per (kernel, NC, store type).  Every pointer
-// is a device pointer; stream is a cudaStream_t.  pixels: P of the
-// one-frame kernel, 1, 2 or 4.  Return: cudaGetLastError() after the
-// launch (0 = launched), or cudaErrorInvalidValue for a shape the
-// kernels do not take (nothing launched).
+// is a device pointer; stream is a cudaStream_t.  Return:
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a shape the kernels do not take (nothing
+// launched).
 #define OCTVR_REMAP_ENTRY(NAME, NC, T)                                        \
   extern "C" int NAME(const void* src, const void* x0, const void* y0,        \
                       const void* fx, const void* fy, const void* offsets,    \
                       const void* src_table, void* out, int n_inputs,         \
                       long long max_count, long long total,                   \
-                      long long src_rows, int W, int pixels, void* stream) {  \
+                      long long src_rows, int W, void* stream) {              \
     return launch<NC, T>(src, x0, y0, fx, fy, offsets, src_table, out,        \
-                         n_inputs, max_count, total, src_rows, W, pixels,     \
-                         stream);                                             \
+                         n_inputs, max_count, total, src_rows, W, stream);    \
   }
 
 #define OCTVR_REMAP_FRAMES_ENTRY(NAME, NC, T)                                 \

@@ -1,7 +1,7 @@
 """Wrapper of the Hopper remap kernels (csrc/remap.cu).
 
-``remap_apply`` (one frame: ``remap_kernel``, ``PIXELS`` pixels per
-thread) and ``remap_apply_frames`` (B frames in one launch:
+``remap_apply`` (one frame: ``remap_kernel``, two pixels per thread)
+and ``remap_apply_frames`` (B frames in one launch:
 ``remap_frames_kernel``, which reads the plan once per batch) take the
 plain torch version for a CPU tensor and launch a CUDA kernel for a
 CUDA tensor; there is no fallback from one to the other.  The source is
@@ -30,7 +30,6 @@ from .remap import (
 __all__ = [
     "COUNTS",
     "LAUNCHES",
-    "PIXELS",
     "launch_flat",
     "remap_apply",
     "remap_apply_frames",
@@ -40,20 +39,19 @@ __all__ = [
 LAUNCHES = 0
 COUNTS = {}
 
-PIXELS = 2  # pixels per thread of the one-frame kernel (1, 2 or 4; PERF.md §6)
-
 _OUT_TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _PTRS = [ctypes.c_void_p] * 8
 _ARGTYPES = {
     # (src, x0, y0, fx, fy, offsets, src_table, out, n_inputs, max_count,
-    # total, src_rows, W, pixels, stream)
+    # total, src_rows, W, stream)
     False: _PTRS + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+                    ctypes.c_int, ctypes.c_void_p],
     # (..., out, n_frames, n_inputs, max_count, total, src_rows, W, stream)
     True: _PTRS + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
 }
 _ENTRIES = {}  # (nc, out dtype, frames) -> ctypes function
+_INVALID_VALUE = 1  # cudaErrorInvalidValue: a shape the kernels refuse
 
 
 def reset_counts():
@@ -75,11 +73,10 @@ def _entry(nc: int, out_dtype, frames: bool):
     return fn
 
 
-def launch_flat(src, plan: RemapGroup, out_dtype=torch.float32, frames: bool = False, pixels: int = None):
+def launch_flat(src, plan: RemapGroup, out_dtype=torch.float32, frames: bool = False):
     """One kernel launch on a CUDA uint8 source (ops/remap.py
     ``flat_source``; ``frames``: a leading frames axis, the frames
-    kernel).  ``pixels``: P of the one-frame kernel (default
-    ``PIXELS``).  Returns (the flat output [B, C * total], C), which
+    kernel).  Returns (the flat output [B, C * total], C), which
     ``remap_apply`` and ``remap_apply_frames`` split into per-input
     views."""
     if src.device.type != "cuda":
@@ -93,9 +90,6 @@ def launch_flat(src, plan: RemapGroup, out_dtype=torch.float32, frames: bool = F
     for t in (plan.x0, plan.y0, plan.fx, plan.fy, plan.offsets, plan.src_table):
         if t.device != dev:
             raise ValueError(f"plan on {t.device}, source on {dev}")
-    pixels = PIXELS if pixels is None else pixels
-    if pixels not in (1, 2, 4):
-        raise ValueError(f"pixels per thread {pixels} not in (1, 2, 4)")
     b = flat.shape[0]
     out = torch.empty((b, nc * plan.total), dtype=out_dtype, device=dev)
     if plan.max_count == 0 or b == 0:
@@ -108,9 +102,15 @@ def launch_flat(src, plan: RemapGroup, out_dtype=torch.float32, frames: bool = F
     shape = (len(plan.out_shapes), plan.max_count, plan.total, plan.src_rows, plan.in_shape[1])
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            err = _call(fn, head, shape, b, frames, pixels)
+            err = _call(fn, head, shape, b, frames)
     else:
-        err = _call(fn, head, shape, b, frames, pixels)
+        err = _call(fn, head, shape, b, frames)
+    if err == _INVALID_VALUE:
+        raise RuntimeError(
+            f"remap kernel refused the shape (inputs, max_count, total, src_rows, W) = {shape}: it takes "
+            "1 to 65,535 inputs, at most 2^31 - 513 output pixels per input, and one channel of a "
+            "frame's source under 2^31 bytes (src_rows * W)"
+        )
     if err != 0:
         raise RuntimeError(f"remap kernel launch failed: CUDA error {err}")
     global LAUNCHES
@@ -120,11 +120,11 @@ def launch_flat(src, plan: RemapGroup, out_dtype=torch.float32, frames: bool = F
     return out, nc
 
 
-def _call(fn, head, shape, b, frames, pixels):
+def _call(fn, head, shape, b, frames):
     stream = torch.cuda.current_stream().cuda_stream
     if frames:
         return fn(*head, b, *shape, stream)
-    return fn(*head, *shape, pixels, stream)
+    return fn(*head, *shape, stream)
 
 
 def remap_apply(src, plan: RemapGroup, out_dtype=torch.float32, run: int = 1):

@@ -1,6 +1,6 @@
 """Port tests that need an NVIDIA card: the CUDA remap kernels (NC=1, 2
-and 3; the one-frame kernel at 1, 2 and 4 pixels per thread on ragged
-inputs; the frames kernel against one-frame launches; stacked or concat
+and 3; the one-frame kernel on ragged inputs and on a shape it refuses;
+the frames kernel against one-frame launches; stacked or concat
 sources; a CUDA-graph replay) and the
 three kernels of the MXU-taps probe (kernel 8) against their plain
 torch versions, and the port's Mapper and ShardedMapper (every option
@@ -110,32 +110,31 @@ def _ragged(device, nc, seed, frames=None):
 
 @pytest.mark.parametrize("nc", [1, 2, 3])
 def test_one_frame_kernel_ragged_inputs(cuda_device, nc):
-    """The one-frame kernel at P = 1, 2 and 4 pixels per thread on inputs
-    whose counts and starts are no multiple of P (a 1-pixel input, an
+    """The one-frame kernel (two pixels per thread) on inputs whose
+    counts and starts are no multiple of 2 (a 1-pixel input, an
     all-invalid one, the edge-clamp maps): f32 within 1e-3 of the plain
     version, exact zeros where invalid, the bf16 store equal to the cast
-    f32 store, and every P bit-identical to P = 1."""
+    f32 store.  A group one pixel past the kernel's per-input limit
+    (2^31 - 513) is refused with the limits named, and nothing runs."""
     group, planes = _ragged(cuda_device, nc, 80 + nc)
-    assert [s % 4 for s in group.starts[1:-1]] != [0] * (len(group.starts) - 2)
+    assert any(s % 2 for s in group.starts[1:-1])
     ref = remap_apply_reference(planes, group, torch.float32)
     assert ref[2].abs().max().item() == 0.0
     cuda_remap.reset_counts()
-    by_p = {}
-    for p in (1, 2, 4):
-        k32, _ = cuda_remap.launch_flat(planes, group, torch.float32, pixels=p)
-        k16, _ = cuda_remap.launch_flat(planes, group, torch.bfloat16, pixels=p)
-        by_p[p] = (k32, k16)
-        got = split_frame_outputs(k32, group, nc)
-        for g, r in zip(got, ref):
-            assert (g[0] - r).abs().max().item() < 1e-3
-        assert torch.equal(k16, k32.to(torch.bfloat16))
-        assert got[2].abs().max().item() == 0.0
+    k32, _ = cuda_remap.launch_flat(planes, group, torch.float32)
+    k16, _ = cuda_remap.launch_flat(planes, group, torch.bfloat16)
+    got = split_frame_outputs(k32, group, nc)
+    for g, r in zip(got, ref):
+        assert (g[0] - r).abs().max().item() < 1e-3
+    assert torch.equal(k16, k32.to(torch.bfloat16))
+    assert got[2].abs().max().item() == 0.0
     torch.cuda.synchronize()
-    assert cuda_remap.COUNTS == {f"nc{nc}_f32": 3, f"nc{nc}_bf16": 3}
-    for p in (2, 4):
-        assert torch.equal(by_p[p][0], by_p[1][0]) and torch.equal(by_p[p][1], by_p[1][1])
-    with pytest.raises(ValueError, match="pixels per thread"):
-        cuda_remap.launch_flat(planes, group, torch.float32, pixels=3)
+    assert cuda_remap.COUNTS == {f"nc{nc}_f32": 1, f"nc{nc}_bf16": 1}
+    if nc == 1:  # the refused launch still allocates its 4 GB bf16 output
+        huge = dataclasses.replace(group, max_count=2**31 - 512, total=2**31 - 512)
+        with pytest.raises(RuntimeError, match=r"src_rows \* W"):
+            cuda_remap.launch_flat(planes, huge, torch.bfloat16)
+        assert cuda_remap.COUNTS == {f"nc{nc}_f32": 1, f"nc{nc}_bf16": 1}
 
 
 @pytest.mark.parametrize("frames", [1, 3, 4, 5])
