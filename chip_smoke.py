@@ -28,13 +28,14 @@ Phases, each failing the run on any error:
      f. kernel 6 at NC=3 (the rgb band path) on the 96x256 fixture, with
         its frames launch, and on one band of the 4K rgb band-sharded
         plan;
-     g. kernel 8, the MXU-taps probe's three kernels (A per-pixel gather,
-        B folded f32 product, B2 exact bf16 selections on the tensor
-        cores), each against its plain version and the others, timed at
-        the probe's defaults with the function's bound (bytes over 3.35
-        TB/s: the three compute one bilinear sample), its own
-        formulation's operation floor (flops over 67 TFLOP/s f32 / 989
-        TFLOP/s bf16) and grid_sample on the same function; then the
+     g. kernel 8, the MXU-taps probe's three kernels (A per-pixel gather;
+        B the folded f32 weights as three bf16 products and B2 two exact
+        bf16 selection products, both wgmma on the tensor cores), each
+        against its plain version and the others, timed at the probe's
+        defaults with the function's bound (bytes over 3.35 TB/s: the
+        three compute one bilinear sample), its own formulation's
+        operation floor (flops over 67 TFLOP/s f32 for A, 989 TFLOP/s
+        bf16 for B and B2) and grid_sample on the same function; then the
         probe's entry point
         (octvr_tpu_torch.tools.mxu_taps_probe), whose launches are the
         kernels' counts;
@@ -86,11 +87,14 @@ kernels; the last line is {"ok": true, "device": {...}}.  Imports no
 JAX.
 
     python3 chip_smoke.py --time-remap ROOT
+    python3 chip_smoke.py --time-taps ROOT
 
-times only the 4K remap launches (phase 3h's rows, device and call ms)
-of the package in the checkout at ROOT and prints them as one JSON line:
-run it on two checkouts in turns, in one call on one card, to compare
-their kernels (an earlier commit's, or an edited copy of remap.cu).
+times only the 4K remap launches (phase 3h's rows, device and call ms),
+or only kernel 8's three bodies at the probe's defaults (3g's timing,
+each held to A), of the package in the checkout at ROOT and prints them
+as one JSON line: run it on two checkouts in turns, in one call on one
+card, to compare their kernels (an earlier commit's, or an edited copy
+of a source).
 """
 
 import importlib.util
@@ -278,7 +282,7 @@ def phase_build():
         ptxas = lib.with_suffix(".log")
         if ptxas.exists():
             for line in ptxas.read_text().splitlines():
-                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                if any(w in line for w in ("registers", "spill", "Compiling entry", "wgmma", "arning")):
                     log("    ptxas: " + line.strip())
 
 
@@ -730,8 +734,10 @@ def _taps_bound(body, steps, g, lo, hi):
     store, the visited window rows once (int32; the rows outside them are
     never needed), and 6 f32 FMAs.  ``floor`` is the body's own
     formulation's operation floor, logged beside the bound and never used
-    as it: B's dense f32 product, 128 x kb FMAs per pixel, and B2's two
-    such products in bf16 against the tensor cores' peak."""
+    as it, ``flops`` that formulation's count: A's 6 FMAs per pixel on
+    the CUDA cores; B's three bf16 products (the f32 weights split into
+    hi + mid + lo terms) and B2's two, each 128 x kb multiply-adds per
+    pixel, against the tensor cores' bf16 peak."""
     from octvr_tpu_torch.ops.mxu_taps import TH, TW, visited_rows
 
     klo, khi = visited_rows(lo, hi)
@@ -741,11 +747,37 @@ def _taps_bound(body, steps, g, lo, hi):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     form_flops, peak = {
         "fan": (flops, F32_FLOP_PER_S),
-        "mxu_folded": (2 * px * (khi - klo) * TW, F32_FLOP_PER_S),
+        "mxu_folded": (6 * px * (khi - klo) * TW, BF16_FLOP_PER_S),
         "mxu_exact2": (4 * px * (khi - klo) * TW, BF16_FLOP_PER_S),
     }[body]
     floor = form_flops / peak * 1e3
     return nbytes, form_flops, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", floor
+
+
+def time_taps(root):
+    """``--time-taps ROOT``: device and call ms of kernel 8's three bodies
+    of the package at ROOT at the probe's defaults, each held to A within
+    1e-3, printed as one JSON line."""
+    sys.path.insert(0, os.path.abspath(root))
+    import octvr_tpu_torch
+    from octvr_tpu_torch.ops import mxu_taps
+    from octvr_tpu_torch.tools import mxu_taps_probe
+
+    log(f"== timing kernel 8 of {os.path.dirname(octvr_tpu_torch.__file__)}")
+    lo, hi = TAPS["lo"], TAPS["hi"]
+    arrays = mxu_taps_probe.make_probe_inputs(TAPS["steps"], TAPS["g"], TAPS["kh"], lo, hi)
+    t = [torch.from_numpy(a).cuda() for a in arrays]
+    want = mxu_taps.fan(*t, lo, hi)
+    rows = {}
+    for k in ("fan", "mxu_folded", "mxu_exact2"):
+        fn = getattr(mxu_taps, k)
+        err = max((a - b).abs().max().item() for a, b in zip(fn(*t, lo, hi), want))
+        if not err < 1e-3:
+            raise AssertionError(f"{k} of {root} disagrees with A: {err}")
+        ms = device_ms(lambda: fn(*t, lo, hi))
+        rows[k] = {"ms": ms[0], "ms_min": ms[1], "ms_max": ms[2],
+                   "call_ms": steady_ms(lambda: fn(*t, lo, hi))[0], "err_vs_fan": err}
+    print(json.dumps({"root": os.path.abspath(root), "taps": rows}))
 
 
 def _taps_grid_sample(oyl, fxy, win):
@@ -775,8 +807,10 @@ def _taps_grid_sample(oyl, fxy, win):
 
 def phase_mxu_taps():
     """Kernel 8, the MXU-taps probe's three bodies (A: per-pixel gather;
-    B: folded one-hot f32 product on the CUDA cores; B2: two exact bf16
-    selection products on the tensor cores): each against its plain
+    B: the folded one-hot f32 weights as three bf16 products, B2: two
+    exact bf16 selection products, both wgmma on the tensor cores, the
+    taps read from the product staged in shared memory): each against
+    its plain
     version and the three against each other at 64 steps x G=8 and at
     the probe's defaults (f32 max abs < 1e-3), timed at the defaults with
     its bound, its plain version and grid_sample on the same function;
@@ -786,7 +820,8 @@ def phase_mxu_taps():
     from octvr_tpu_torch.ops import mxu_taps
     from octvr_tpu_torch.tools import mxu_taps_probe
 
-    log("== 3g. kernel 8 (the MXU-taps probe): A fan, B folded f32 product, B2 exact bf16 selections")
+    log("== 3g. kernel 8 (the MXU-taps probe): A fan, B folded f32 weights (three bf16 wgmma products), "
+        "B2 exact bf16 selections (two wgmma products)")
     t_phase = time.time()
     lo, hi = TAPS["lo"], TAPS["hi"]
     names = ("fan", "mxu_folded", "mxu_exact2")
@@ -835,7 +870,8 @@ def phase_mxu_taps():
             f"{ms_lo:.4f}-{ms_hi:.4f}), call {call:.4f} ms, plain torch {plain:.4f} ms, grid_sample {lib:.4f} ms; "
             f"{nbytes / 1e6:.1f} MB ({nbytes / ms / 1e9:.3f} TB/s); bound of the function "
             f"{bound:.4f} ms ({by}), share {bound / ms:.3f}; this formulation's "
-            f"{flops / 1e9:.1f} GFLOP ({flops / ms / 1e9:.1f} TFLOP/s), its operation floor {floor:.4f} ms")
+            f"{flops / 1e9:.1f} GFLOP ({flops / ms / 1e9:.1f} TFLOP/s), its operation floor {floor:.4f} ms, "
+            f"share {floor / ms:.3f}")
         rows[k].update(ms=ms, call_ms=call, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib)
     del t
 
@@ -1647,8 +1683,10 @@ def main(argv):
     smi = phase_env()
     if len(argv) == 2 and argv[0] == "--time-remap":
         return time_remap(argv[1])
+    if len(argv) == 2 and argv[0] == "--time-taps":
+        return time_taps(argv[1])
     if argv:
-        raise SystemExit(f"usage: chip_smoke.py [--time-remap ROOT], got {argv}")
+        raise SystemExit(f"usage: chip_smoke.py [--time-remap ROOT | --time-taps ROOT], got {argv}")
     phase_build()
     err_small = phase_kernel_small()
 
@@ -1710,8 +1748,9 @@ def main(argv):
         ("remap concat-source NC=3 (band-sharded rgb, source windows), kernel 6", src, f"{pr}:1249",
          timed(sharded_rgb, "sharded_nc3_bf16"), err_concat_nc3),
         ("MXU-taps probe A, per-pixel gather (fan), kernel 8", taps_src, f"{probe}:100", taps["fan"], 0.0),
-        ("MXU-taps probe B, folded f32 product, kernel 8", taps_src, f"{probe}:140", taps["mxu_folded"], 0.0),
-        ("MXU-taps probe B2, exact bf16 selection products (tensor cores), kernel 8", taps_src,
+        ("MXU-taps probe B, folded f32 weights as three bf16 wgmma products, A from registers, kernel 8",
+         taps_src, f"{probe}:140", taps["mxu_folded"], 0.0),
+        ("MXU-taps probe B2, two exact bf16 selection wgmma products, A from registers, kernel 8", taps_src,
          f"{probe}:197", taps["mxu_exact2"], 0.0),
     ]
     print(json.dumps({"kernels": [{

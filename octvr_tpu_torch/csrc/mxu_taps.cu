@@ -38,58 +38,95 @@
 //     writes 4 B.  Bound by bytes: the plan, the visited window rows
 //     (L2 hits after the first touch: 1,024 pixels share a window) and
 //     the store, all coalesced across a warp.
-//   - taps_mxu_folded_kernel: one block per step keeps the visited rows
-//     in shared memory as f32; per output row it builds W [kb, 128] in
-//     shared memory and takes the dense V = W^T R (128 x 128, kb deep) on
-//     the CUDA cores in f32, each thread an 8 x 8 register tile (not TF32,
-//     which would truncate the weights as the TPU's default precision
-//     did).  The horizontal taps are two reads of V in shared memory: the
-//     gather the probe meant, where Mosaic needed a masked reduction.
-//     Bound by operations: 128 x kb FMAs per output pixel.
-//   - taps_mxu_exact2_kernel: one block per step keeps the visited rows
-//     in shared memory as bf16; per output row it builds S0 and S1 (bf16
-//     0/1) and takes both products on the tensor cores (wmma bf16
-//     m16n16k16, f32 accumulation; each of the 8 warps 16 pixels x 128
-//     columns), V0 and V1 to shared memory, then the taps.  Bound by
-//     operations: 2 x 128 x kb bf16 FMAs per output pixel.  At most 112
-//     visited rows fit beside V0 and V1 (ops/mxu_taps.py MAX_VISITED).
-// None of them calls a library product.  wgmma and TMA are left for
-// later.
+//   - taps_mxu_folded_kernel and taps_mxu_exact2_kernel: every pixel of
+//     a step shares its window, so a step is one GEMM, M = the step's
+//     G x 1,024 pixels, K = kb visited rows, N = 128 columns, and the
+//     horizontal taps are its epilogue (not one product per output row,
+//     as on the TPU).  One block per step stages the visited rows once
+//     in shared memory as bf16 (exact: integers <= 255), the B operand of
+//     wgmma.m64n128k16 (K-major, no swizzle).  Two warpgroups walk the
+//     step's M-tiles: 64 pixels for B, 32 for B2, whose tile stacks a
+//     pixel's S0 and S1 rows, so each tile is one product and one
+//     epilogue.  Each thread builds its A fragments in registers from its
+//     pixels' tap rows (the RS form: no one-hot in shared memory, no block
+//     barrier per tile).  The products are issued as whole groups (B2: all
+//     kb / 16 steps, one wait; B: a step's three terms per group, two
+//     fragment sets in turn), since each warpgroup's tiles are short and
+//     latency-bound.  The epilogue stages the warp's 16 rows of V in shared
+//     memory (B2 as bf16 through stmatrix, exact; B as f32) and each lane of
+//     a quad reads one of its pixels' taps; two shuffles sum the quad.
+//     One instance per kb / 16 (1..7), so fragments and loops are constant.
+//     Bound by the formulation's tensor-core operations, 128 x kb
+//     bf16 multiply-adds per pixel and product against 989 TFLOP/s:
+//       B2: two products (S0, S1: exact 0/1 selections, f32 accumulate);
+//       B:  three: the f32 weight W is split in registers into bf16
+//           terms hi + mid + lo (each the rounding of what the ones
+//           before it left), the three products accumulate into one f32
+//           accumulator: what the TPU's MXU does for an f32 product at
+//           HIGHEST, and f32's accuracy, where TF32 would truncate W.
+//     At the probe's defaults (kb 48, 15.7 M pixels) those floors are
+//     0.390 and 0.585 ms; the function itself needs 0.108 ms of bytes.
+//     At most 112 visited rows (ops/mxu_taps.py MAX_VISITED: 28 KB).
+// None of them calls a library product.
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace {
 
 constexpr int kTH = 8;             // output rows of a tile
 constexpr int kTW = 128;           // lanes: pixels of a row, window columns
 constexpr int kTile = kTH * kTW;   // output pixels of a tile
-constexpr int kThreads = 256;
-constexpr int kLd = kTW + 8;       // padded row of the exact2 kernel's tiles
-constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block can use
+constexpr int kThreads = 256;      // the fan kernel's block
+constexpr int kWarpgroup = 128;
+constexpr int kGroups = 2;         // consumer warpgroups of a product block
+constexpr int kProdThreads = kGroups * kWarpgroup;
+constexpr int kStepK = 16;         // window rows of one wgmma (K)
+constexpr int kMaxVisited = 112;   // ops/mxu_taps.py MAX_VISITED
+// The staged window: one K-step (16 rows x 128 columns, bf16) is 4 KB of
+// 8 x 8 core matrices; K-adjacent ones lie kLbo apart, N-adjacent kSbo.
+constexpr uint32_t kStepBytes = kStepK * kTW * 2;
+constexpr uint32_t kLbo = 128;
+constexpr uint32_t kSbo = 256;
+// The product kernels' epilogue reads the taps from V staged in shared
+// memory (B2: bf16 by stmatrix, exact for its integer V; B: f32), each
+// warp its own 16 rows, padded to kVRow so the stores meet no bank twice.
+constexpr int kVRow = kTW + 8;
 
 struct Pixel {
   int oy0, oy1, l0, l1;
   float fx, fy;
 };
 
-// pixel p (r * 128 + c) of tile t (n * G + g)
-__device__ __forceinline__ Pixel load_pixel(const uint32_t* __restrict__ oyl,
-                                            const float* __restrict__ fxy,
-                                            int64_t t, int p) {
-  const int64_t q = t * 2 * kTile + p;
-  const uint32_t oy = oyl[q];
-  const uint32_t l = oyl[q + kTile];
-  return {(int)(oy & 0xFFFFu), (int)(oy >> 16), (int)(l & 0xFFFFu),
-          (int)(l >> 16),      fxy[q],          fxy[q + kTile]};
+// A pixel's plan words as loaded (4 registers); unpacked when used.
+struct RawPixel {
+  uint32_t oy, l;
+  float fx, fy;
+};
+
+// Pixels p + 8 i (i < kPx; p = r * 128 + c, past kTile into the next
+// tiles) of tile t0 (n * G + g).
+template <int kPx>
+__device__ __forceinline__ void load_raw(RawPixel (&x)[kPx],
+                                         const uint32_t* __restrict__ oyl,
+                                         const float* __restrict__ fxy,
+                                         int64_t t0, int p) {
+#pragma unroll
+  for (int i = 0; i < kPx; ++i) {
+    const int64_t q = (t0 + p / kTile) * 2 * kTile + p % kTile + 8 * i;
+    x[i] = {oyl[q], oyl[q + kTile], fxy[q], fxy[q + kTile]};
+  }
+}
+
+__device__ __forceinline__ Pixel unpack(const RawPixel& r) {
+  return {(int)(r.oy & 0xFFFFu), (int)(r.oy >> 16), (int)(r.l & 0xFFFFu),
+          (int)(r.l >> 16),      r.fx,              r.fy};
 }
 
 // a0 row[l0] + a1 row[l1], a lane outside the 128 adding 0
-template <typename T>
-__device__ __forceinline__ float lane_mix(const T* row, int l0, int l1,
+__device__ __forceinline__ float lane_mix(const int32_t* row, int l0, int l1,
                                           float a0, float a1) {
   const float s0 = l0 < kTW ? (float)row[l0] : 0.0f;
   const float s1 = l1 < kTW ? (float)row[l1] : 0.0f;
@@ -111,7 +148,9 @@ __global__ void __launch_bounds__(kThreads)
   const int p = (int)(q % kTile);
   const int64_t n = t / G;
   const int g = (int)(t % G);
-  const Pixel px = load_pixel(oyl, fxy, t, p);
+  RawPixel raw[1];
+  load_raw(raw, oyl, fxy, t, p);
+  const Pixel px = unpack(raw[0]);
   const int32_t* w = win + n * KH * kTW;
   const float a0 = 1.0f - px.fx, a1 = px.fx;
   float acc = 0.0f;
@@ -122,166 +161,398 @@ __global__ void __launch_bounds__(kThreads)
   *out_at(out, n_steps, n, g, p) = acc;
 }
 
-// Shared memory (f32): R [kb][128], W [kb][128] (W[k][pc]), V [128][128]
-// (V[pc][c]).  Thread t builds column pc = t % 128 of W over every other
-// k, computes V's rows 4 ti + {0..3} and 64 + 4 ti + {0..3} at columns
-// 4 tj + {0..3} and 64 + 4 tj + {0..3} (ti = t / 16, tj = t % 16: a
-// quarter warp reads and writes 128 contiguous bytes), and threads 0-127
-// take the taps of pixel pc.
-__global__ void __launch_bounds__(kThreads)
+// ---- the tensor-core bodies ----------------------------------------
+
+// bf16x2 of (lo, hi): lo in the lower half, round to nearest
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// Rows [klo, klo + kb) of one step's window (w points at row klo) into
+// shared memory as wgmma's B operand (K = kb rows, N = 128 columns), bf16,
+// K-major, no swizzle: element (k, c) at byte
+//   (k / 16) * 4096 + (c / 8) * 256 + (k / 8 % 2) * 128 + (c % 8) * 16 + (k % 8) * 2,
+// i.e. core matrices of 8 columns x 8 rows (16 B per column).  An item is
+// one column's 8 rows: 8 loads coalesced across the warp, one 16 B store;
+// a quarter warp fills one 128 B core matrix.  The async-proxy fence
+// makes the stores visible to wgmma.
+__device__ __forceinline__ void stage_window(uint4* rt,
+                                             const int32_t* __restrict__ w,
+                                             int kb) {
+  for (int i = threadIdx.x; i < kb / 8 * kTW; i += kProdThreads) {
+    const int c = i % kTW, kc = i / kTW;
+    const int32_t* src = w + 8 * kc * kTW + c;
+    uint32_t h[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      h[j] = pack_bf16x2((float)src[2 * j * kTW], (float)src[(2 * j + 1) * kTW]);
+    rt[(kc / 2) * 256 + (c / 8) * 16 + (kc % 2) * 8 + c % 8] =
+        make_uint4(h[0], h[1], h[2], h[3]);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+// shared-memory descriptor of one K-step of the staged window
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(kLbo >> 4) << 16) |
+         ((uint64_t)(kSbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins the accumulators after a wait, so no read of them moves above it.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define ACC8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (+)= A B: A 64 x 16 bf16 from registers (a0..a3, the m16n8k16
+// fragment of the thread's warp's 16 rows), B 16 x 128 from the
+// descriptor; d += when accumulate, else d =.
+__device__ __forceinline__ void mma(float (&d)[64], uint32_t a0, uint32_t a1,
+                                    uint32_t a2, uint32_t a3, uint32_t b_addr,
+                                    bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
+        ACC8(56)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b_desc(b_addr)),
+        "r"((int)accumulate));
+}
+
+#undef ACC8
+
+// A fragments.  The thread holds, of its warp's 16 rows of the M-tile,
+// rows r0 = lane / 4 and r0 + 8, at the K-step's columns k0 + {0, 1, 8,
+// 9} (k0 = the step's first row + 2 (lane % 4)), in four registers:
+// {r0, k0..+1}, {r0 + 8, k0..+1}, {r0, k0+8..+9}, {r0 + 8, k0+8..+9}, the
+// lower column in the lower half.  d = a tap row - k0.
+
+// 0/1 selection of two columns (k0 + e, k0 + e + 1)
+__device__ __forceinline__ uint32_t select2(int d, int e) {
+  return (d == e ? 0x3F80u : 0u) | (d == e + 1 ? 0x3F800000u : 0u);
+}
+
+// B's f32 weight (1-fy) [oy0 == k] + fy [oy1 == k] of the plain version
+__device__ __forceinline__ float weight(int d0, int d1, float wy0, float wy1) {
+  return (d0 == 0 ? wy0 : 0.0f) + (d1 == 0 ? wy1 : 0.0f);
+}
+
+// Two f32 weights (columns k, k + 1) as three bf16x2 terms: each term is
+// the rounding of what the terms before it left, the differences exact
+// in f32, so hi + mid + lo holds the f32 weight to ~2^-24 of it.
+__device__ __forceinline__ void split3(float x, float y, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  hi = pack_bf16x2(x, y);
+  x -= __uint_as_float(hi << 16);
+  y -= __uint_as_float(hi & 0xFFFF0000u);
+  mid = pack_bf16x2(x, y);
+  x -= __uint_as_float(mid << 16);
+  y -= __uint_as_float(mid & 0xFFFF0000u);
+  lo = pack_bf16x2(x, y);
+}
+
+// acc = S^T R over the KS K-steps for the 0/1 selection of tap row
+// k0 + d0 in row r0 and k0 + d1 in row r0 + 8.  Every step's fragment is
+// built first (4 registers a step), then all KS products go out as one
+// group with one wait: a wait between steps leaves the warpgroup idle for
+// a product's latency.
+template <int KS>
+__device__ __forceinline__ void select_product(float (&acc)[64], uint32_t rt,
+                                               int d0, int d1) {
+  uint32_t a[4 * KS];
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    const int e0 = d0 - kStepK * s, e1 = d1 - kStepK * s;
+    a[4 * s] = select2(e0, 0);
+    a[4 * s + 1] = select2(e1, 0);
+    a[4 * s + 2] = select2(e0, 8);
+    a[4 * s + 3] = select2(e1, 8);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < KS; ++s)
+    mma(acc, a[4 * s], a[4 * s + 1], a[4 * s + 2], a[4 * s + 3],
+        rt + s * kStepBytes, s > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+}
+
+// The three terms of one K-step's weights: t[4 m + i] is term m (hi,
+// mid, lo) of fragment register i.
+__device__ __forceinline__ void folded_frag(uint32_t (&t)[12], const Pixel& p0,
+                                            const Pixel& p1, int d) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const Pixel& p = (i & 1) ? p1 : p0;
+    const int e = d + 8 * (i >> 1);  // column k0 + 8 (i / 2) - the step's offset
+    const float wy0 = 1.0f - p.fy, wy1 = p.fy;
+    split3(weight(p.oy0 - e, p.oy1 - e, wy0, wy1),
+           weight(p.oy0 - e - 1, p.oy1 - e - 1, wy0, wy1), t[i], t[4 + i],
+           t[8 + i]);
+  }
+}
+
+__device__ __forceinline__ void folded_step(float (&acc)[64],
+                                            const uint32_t (&t)[12],
+                                            uint32_t b_addr, bool accumulate) {
+  wgmma_fence();
+  mma(acc, t[0], t[1], t[2], t[3], b_addr, accumulate);
+  mma(acc, t[4], t[5], t[6], t[7], b_addr, true);
+  mma(acc, t[8], t[9], t[10], t[11], b_addr, true);
+  wgmma_commit();
+}
+
+// acc = W^T R over the KS K-steps, W the f32 weights of pixel p0 (row
+// r0) and p1 (row r0 + 8) in three bf16 terms; k0 as above.  Each step's
+// three products go out as one group; two fragment sets (12 registers
+// each) in turn, a set rebuilt once the group that read it is done.
+template <int KS>
+__device__ __forceinline__ void folded_product(float (&acc)[64], uint32_t rt,
+                                               const Pixel& p0,
+                                               const Pixel& p1, int k0) {
+  uint32_t a[12], b[12];
+#pragma unroll
+  for (int s = 0; s < KS; s += 2) {
+    if (s > 0) wgmma_wait<1>();
+    folded_frag(a, p0, p1, k0 + kStepK * s);
+    folded_step(acc, a, rt + s * kStepBytes, s > 0);
+    if (s + 1 < KS) {
+      if (s > 0) wgmma_wait<1>();
+      folded_frag(b, p0, p1, k0 + kStepK * (s + 1));
+      folded_step(acc, b, rt + (s + 1) * kStepBytes, true);
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+}
+
+// Warp's 16 x 128 tile of V (its accumulator rows) to shared memory as
+// bf16, row stride kVRow: 8 stmatrix.x4, each four 8 x 8 matrices (column
+// blocks 2 m and 2 m + 1, row blocks 0 and 1); lane gives the address of
+// row lane % 8 of matrix lane / 8.
+__device__ __forceinline__ void stage_v_bf16(uint32_t vs, const float (&acc)[64],
+                                             int lane) {
+  const int mi = lane / 8;
+  const uint32_t base = vs + ((8 * (mi & 1) + lane % 8) * kVRow + 8 * (mi >> 1)) * 2;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    asm volatile(
+        "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+            base + 32 * m),
+        "r"(pack_bf16x2(acc[8 * m], acc[8 * m + 1])),
+        "r"(pack_bf16x2(acc[8 * m + 2], acc[8 * m + 3])),
+        "r"(pack_bf16x2(acc[8 * m + 4], acc[8 * m + 5])),
+        "r"(pack_bf16x2(acc[8 * m + 6], acc[8 * m + 7]))
+        : "memory");
+  }
+}
+
+// the same in f32, 8 B stores
+__device__ __forceinline__ void stage_v_f32(float* v, const float (&acc)[64],
+                                            int lane) {
+  float* row = v + (lane / 4) * kVRow + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    *reinterpret_cast<float2*>(row + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(row + 8 * kVRow + 8 * j) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// Sums the quad's shares of each pixel; lane i of the quad stores pixel i.
+template <int kPx>
+__device__ __forceinline__ void store_pixels(float* out, int n_steps, int64_t n,
+                                             int p, int q, float (&r)[kPx]) {
+#pragma unroll
+  for (int i = 0; i < kPx; ++i) {
+    r[i] += __shfl_xor_sync(0xffffffffu, r[i], 1);
+    r[i] += __shfl_xor_sync(0xffffffffu, r[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < kPx; ++i)
+    if (q == i) *out_at(out, n_steps, n, p / kTile, p % kTile + 8 * i) = r[i];
+}
+
+// Shared by both product kernels.  Block n stages step n's window; its
+// kGroups warpgroups take the step's M-tiles in turn.  An M-tile's 64
+// rows hold 32 kPx pixels: with kPx = 2 a thread's rows r0 and r0 + 8 are
+// two pixels (B: one product per pixel), with kPx = 1 one pixel's two
+// products (B2: S0 in row r0, S1 in row r0 + 8), so every tile is one
+// product and one epilogue.  A tile's plan is loaded a tile ahead.  body(acc, rt, x, k0, lane, vw, r) leaves the
+// thread's shares of its pixels' outputs in r (vw: the warp's staging
+// rows, Body::kVBytes per element); the window has Body::kSteps K-steps.
+template <int kPx, typename Body>
+__device__ __forceinline__ void product_step(const uint32_t* __restrict__ oyl,
+                                             const float* __restrict__ fxy,
+                                             const int32_t* __restrict__ win,
+                                             float* __restrict__ out,
+                                             int n_steps, int G, int KH,
+                                             int klo, Body body) {
+  constexpr int kTilePx = 32 * kPx;
+  constexpr int kb = Body::kSteps * kStepK;
+  extern __shared__ __align__(128) uint4 window_smem[];
+  const int64_t n = blockIdx.x;
+  stage_window(window_smem, win + (n * KH + klo) * kTW, kb);
+  unsigned char* vw = reinterpret_cast<unsigned char*>(window_smem) + kb * kTW * 2 +
+                      threadIdx.x / 32 * 16 * kVRow * Body::kVBytes;
+  const uint32_t rt = (uint32_t)__cvta_generic_to_shared(window_smem);
+  const int lane = threadIdx.x % 32, q = lane % 4;
+  const int first = 8 * kPx * (threadIdx.x % kWarpgroup / 32) + lane / 4;
+  const int k0 = klo + 2 * q;
+  const int tiles = G * (kTile / kTilePx);  // >= 16 >= kGroups
+  float acc[64];
+  RawPixel cur[kPx], next[kPx];
+  int mt = threadIdx.x / kWarpgroup;
+  load_raw(cur, oyl, fxy, n * G, mt * kTilePx + first);
+  for (; mt < tiles; mt += kGroups) {
+    load_raw(next, oyl, fxy, n * G, min(mt + kGroups, tiles - 1) * kTilePx + first);
+    Pixel x[kPx];
+#pragma unroll
+    for (int i = 0; i < kPx; ++i) x[i] = unpack(cur[i]);
+    float r[kPx];
+    body(acc, rt, x, k0, lane, vw, r);
+    store_pixels(out, n_steps, n, mt * kTilePx + first, q, r);
+#pragma unroll
+    for (int i = 0; i < kPx; ++i) cur[i] = next[i];
+  }
+}
+
+template <int KS>
+struct FoldedBody {  // kPx = 2
+  static constexpr int kSteps = KS;
+  static constexpr int kVBytes = 4;
+  __device__ __forceinline__ void operator()(float (&acc)[64], uint32_t rt,
+                                             const Pixel (&x)[2],
+                                             int k0, int lane,
+                                             unsigned char* vw,
+                                             float (&r)[2]) const {
+    const int q = lane % 4;
+    folded_product<KS>(acc, rt, x[0], x[1], k0);
+    // lane q of the quad reads tap q % 2 of pixel q / 2 (row r0 + 8 (q / 2))
+    float* v = reinterpret_cast<float*>(vw);
+    __syncwarp();  // the last tile's reads are done
+    stage_v_f32(v, acc, lane);
+    __syncwarp();
+    const bool second = q >> 1, right = q & 1;
+    const int l = second ? (right ? x[1].l1 : x[1].l0) : (right ? x[0].l1 : x[0].l0);
+    const float fx = second ? x[1].fx : x[0].fx;
+    const float s = l < kTW ? (right ? fx : 1.0f - fx) *
+                                  v[(lane / 4 + 8 * second) * kVRow + l]
+                            : 0.0f;
+    r[0] = second ? 0.0f : s;
+    r[1] = second ? s : 0.0f;
+  }
+};
+
+template <int KS>
+struct Exact2Body {  // kPx = 1
+  static constexpr int kSteps = KS;
+  static constexpr int kVBytes = 2;
+  __device__ __forceinline__ void operator()(float (&acc)[64], uint32_t rt,
+                                             const Pixel (&x)[1],
+                                             int k0, int lane,
+                                             unsigned char* vw,
+                                             float (&r)[1]) const {
+    const int q = lane % 4;
+    select_product<KS>(acc, rt, x[0].oy0 - k0, x[0].oy1 - k0);
+    // lane q of the quad reads tap q % 2 of V0 (q < 2, row r0) or V1
+    __syncwarp();  // the last tile's reads are done
+    stage_v_bf16((uint32_t)__cvta_generic_to_shared(vw), acc, lane);
+    __syncwarp();
+    const bool v1 = q >> 1, right = q & 1;
+    const int l = right ? x[0].l1 : x[0].l0;
+    const float w = (v1 ? x[0].fy : 1.0f - x[0].fy) * (right ? x[0].fx : 1.0f - x[0].fx);
+    const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(vw);
+    r[0] = l < kTW ? w * __bfloat162float(v[(lane / 4 + 8 * v1) * kVRow + l]) : 0.0f;
+  }
+};
+
+// One instance per K-step count KS = kb / 16 (1..7), picked at launch, so
+// fragments, loops and offsets are constants.
+template <int KS>
+__global__ void __launch_bounds__(kProdThreads)
     taps_mxu_folded_kernel(const uint32_t* __restrict__ oyl,
                            const float* __restrict__ fxy,
                            const int32_t* __restrict__ win,
                            float* __restrict__ out, int n_steps, int G, int KH,
-                           int klo, int kb) {
-  extern __shared__ __align__(16) float smem[];
-  float* R = smem;
-  float* W = R + kb * kTW;
-  float* V = W + kb * kTW;
-  const int tid = threadIdx.x;
-  const int64_t n = blockIdx.x;
-  const int32_t* w = win + (n * KH + klo) * kTW;
-  for (int i = tid; i < kb * kTW; i += kThreads) R[i] = (float)w[i];
-  const int pc = tid % kTW, half = tid / kTW;
-  const int ti = tid / 16, tj = tid % 16;
-
-  for (int row = 0; row < G * kTH; ++row) {
-    const int g = row / kTH, r = row % kTH;
-    const Pixel px = load_pixel(oyl, fxy, n * G + g, r * kTW + pc);
-    const float wy0 = 1.0f - px.fy, wy1 = px.fy;
-    for (int k = half; k < kb; k += 2) {
-      const int kk = klo + k;
-      W[k * kTW + pc] = (px.oy0 == kk ? wy0 : 0.0f) + (px.oy1 == kk ? wy1 : 0.0f);
-    }
-    __syncthreads();  // W built (and, for the block, the last row's taps read)
-
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-#pragma unroll 2
-    for (int k = 0; k < kb; ++k) {
-      const float4 wa = *reinterpret_cast<const float4*>(W + k * kTW + 4 * ti);
-      const float4 wb = *reinterpret_cast<const float4*>(W + k * kTW + 64 + 4 * ti);
-      const float4 ra = *reinterpret_cast<const float4*>(R + k * kTW + 4 * tj);
-      const float4 rb = *reinterpret_cast<const float4*>(R + k * kTW + 64 + 4 * tj);
-      const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-      const float rv[8] = {ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z, rb.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(wv[i], rv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float* v = V + ((i < 4 ? 0 : 64) + 4 * ti + (i & 3)) * kTW;
-      *reinterpret_cast<float4*>(v + 4 * tj) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      *reinterpret_cast<float4*>(v + 64 + 4 * tj) =
-          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-    }
-    __syncthreads();  // V complete
-
-    if (half == 0) {
-      *out_at(out, n_steps, n, g, r * kTW + pc) =
-          lane_mix(V + pc * kTW, px.l0, px.l1, 1.0f - px.fx, px.fx);
-    }
-  }
+                           int klo) {
+  product_step<2>(oyl, fxy, win, out, n_steps, G, KH, klo, FoldedBody<KS>{});
 }
 
-// Shared memory: V0, V1 f32 [128][kLd] (pixel, column), then R, S0, S1
-// bf16 [kb][kLd] (S[k][pc] = 1 where the pixel's tap row is klo + k);
-// rows padded from 128 to kLd = 136 elements, so the 8 rows a fragment
-// load or store touches at once fall on different banks.  Warp wp takes
-// pixels 16 wp .. 16 wp + 15 against all 128 columns: A = S^T is S read
-// column-major (loaded once per k-step for the 8 column tiles), B = R
-// row-major, C = V row-major, 8 + 8 accumulator tiles in registers.
-// Every wmma pointer is 32-byte aligned.
-__global__ void __launch_bounds__(kThreads)
+template <int KS>
+__global__ void __launch_bounds__(kProdThreads)
     taps_mxu_exact2_kernel(const uint32_t* __restrict__ oyl,
                            const float* __restrict__ fxy,
                            const int32_t* __restrict__ win,
                            float* __restrict__ out, int n_steps, int G, int KH,
-                           int klo, int kb) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* V0 = reinterpret_cast<float*>(smem_raw);
-  float* V1 = V0 + kTW * kLd;
-  __nv_bfloat16* R = reinterpret_cast<__nv_bfloat16*>(V1 + kTW * kLd);
-  __nv_bfloat16* S0 = R + kb * kLd;
-  __nv_bfloat16* S1 = S0 + kb * kLd;
-  const int tid = threadIdx.x;
-  const int64_t n = blockIdx.x;
-  const int32_t* w = win + (n * KH + klo) * kTW;
-  for (int i = tid; i < kb * kTW; i += kThreads)
-    R[i / kTW * kLd + i % kTW] = __float2bfloat16_rn((float)w[i]);
-  const int pc = tid % kTW, half = tid / kTW;
-  const int wp = tid / 32;
-  const __nv_bfloat16 one = __float2bfloat16_rn(1.0f);
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-
-  for (int row = 0; row < G * kTH; ++row) {
-    const int g = row / kTH, r = row % kTH;
-    const Pixel px = load_pixel(oyl, fxy, n * G + g, r * kTW + pc);
-    for (int k = half; k < kb; k += 2) {
-      const int kk = klo + k;
-      S0[k * kLd + pc] = px.oy0 == kk ? one : zero;
-      S1[k * kLd + pc] = px.oy1 == kk ? one : zero;
-    }
-    __syncthreads();  // S0, S1 built (and the last row's taps read)
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c0[kTW / 16], c1[kTW / 16];
-#pragma unroll
-    for (int nt = 0; nt < kTW / 16; ++nt) {
-      wmma::fill_fragment(c0[nt], 0.0f);
-      wmma::fill_fragment(c1[nt], 0.0f);
-    }
-    for (int kt = 0; kt < kb / 16; ++kt) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> a0, a1;
-      wmma::load_matrix_sync(a0, S0 + kt * 16 * kLd + 16 * wp, kLd);
-      wmma::load_matrix_sync(a1, S1 + kt * 16 * kLd + 16 * wp, kLd);
-#pragma unroll
-      for (int nt = 0; nt < kTW / 16; ++nt) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, R + kt * 16 * kLd + 16 * nt, kLd);
-        wmma::mma_sync(c0[nt], a0, b, c0[nt]);
-        wmma::mma_sync(c1[nt], a1, b, c1[nt]);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kTW / 16; ++nt) {
-      wmma::store_matrix_sync(V0 + 16 * wp * kLd + 16 * nt, c0[nt], kLd, wmma::mem_row_major);
-      wmma::store_matrix_sync(V1 + 16 * wp * kLd + 16 * nt, c1[nt], kLd, wmma::mem_row_major);
-    }
-    __syncthreads();  // V0, V1 complete
-
-    if (half == 0) {
-      const float a0 = 1.0f - px.fx, a1 = px.fx;
-      const float h0 = lane_mix(V0 + pc * kLd, px.l0, px.l1, a0, a1);
-      const float h1 = lane_mix(V1 + pc * kLd, px.l0, px.l1, a0, a1);
-      *out_at(out, n_steps, n, g, r * kTW + pc) = h0 * (1.0f - px.fy) + h1 * px.fy;
-    }
-  }
+                           int klo) {
+  product_step<1>(oyl, fxy, win, out, n_steps, G, KH, klo, Exact2Body<KS>{});
 }
+
+using ProductKernel = void (*)(const uint32_t*, const float*, const int32_t*,
+                               float*, int, int, int, int);
+// [KS - 1]: the instance for KS K-steps (kMaxVisited / kStepK = 7)
+const ProductKernel kFoldedKernels[] = {
+    taps_mxu_folded_kernel<1>, taps_mxu_folded_kernel<2>,
+    taps_mxu_folded_kernel<3>, taps_mxu_folded_kernel<4>,
+    taps_mxu_folded_kernel<5>, taps_mxu_folded_kernel<6>,
+    taps_mxu_folded_kernel<7>};
+const ProductKernel kExact2Kernels[] = {
+    taps_mxu_exact2_kernel<1>, taps_mxu_exact2_kernel<2>,
+    taps_mxu_exact2_kernel<3>, taps_mxu_exact2_kernel<4>,
+    taps_mxu_exact2_kernel<5>, taps_mxu_exact2_kernel<6>,
+    taps_mxu_exact2_kernel<7>};
+static_assert(sizeof(kFoldedKernels) / sizeof(ProductKernel) == kMaxVisited / kStepK,
+              "one instance per K-step count");
 
 bool valid(int n_steps, int G, int KH, int klo, int khi) {
   return n_steps > 0 && G > 0 && klo >= 0 && klo < khi && khi <= KH &&
          klo % 16 == 0 && khi % 16 == 0;
 }
 
-template <typename Kernel>
-int launch_per_step(Kernel kernel, size_t smem, const void* oyl,
+int launch_per_step(const ProductKernel* kernels, int v_bytes, const void* oyl,
                     const void* fxy, const void* win, void* out, int n_steps,
                     int G, int KH, int klo, int khi, void* stream) {
-  if (!valid(n_steps, G, KH, klo, khi) || smem > kMaxSmem)
+  if (!valid(n_steps, G, KH, klo, khi) || khi - klo > kMaxVisited)
     return (int)cudaErrorInvalidValue;
+  const ProductKernel kernel = kernels[(khi - klo) / kStepK - 1];
+  // the window (<= 28 KB) and each warp's staging rows
+  const size_t smem = (size_t)(khi - klo) * kTW * 2 +
+                      (size_t)kProdThreads / 32 * 16 * kVRow * v_bytes;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<n_steps, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<n_steps, kProdThreads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)oyl, (const float*)fxy, (const int32_t*)win,
-      (float*)out, n_steps, G, KH, klo, khi - klo);
+      (float*)out, n_steps, G, KH, klo);
   return (int)cudaGetLastError();
 }
 
@@ -289,9 +560,9 @@ int launch_per_step(Kernel kernel, size_t smem, const void* oyl,
 
 // Plain C entry points.  Every pointer is a device pointer; stream is a
 // cudaStream_t; [klo, khi) are the visited rows, multiples of 16 within
-// the window.  Return: cudaGetLastError() after the launch (0 =
-// launched), or cudaErrorInvalidValue for arguments the kernel does not
-// take.
+// the window (at most 112 of them for the product kernels).  Return:
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int octvr_taps_fan(const void* oyl, const void* fxy,
                               const void* win, void* out, int n_steps, int G,
                               int KH, int klo, int khi, void* stream) {
@@ -308,17 +579,14 @@ extern "C" int octvr_taps_mxu_folded(const void* oyl, const void* fxy,
                                      const void* win, void* out, int n_steps,
                                      int G, int KH, int klo, int khi,
                                      void* stream) {
-  const size_t smem = (size_t)(2 * (khi - klo) + kTW) * kTW * sizeof(float);
-  return launch_per_step(taps_mxu_folded_kernel, smem, oyl, fxy, win, out,
-                         n_steps, G, KH, klo, khi, stream);
+  return launch_per_step(kFoldedKernels, FoldedBody<1>::kVBytes, oyl, fxy,
+                         win, out, n_steps, G, KH, klo, khi, stream);
 }
 
 extern "C" int octvr_taps_mxu_exact2(const void* oyl, const void* fxy,
                                      const void* win, void* out, int n_steps,
                                      int G, int KH, int klo, int khi,
                                      void* stream) {
-  const size_t smem = 2 * (size_t)kTW * kLd * sizeof(float) +
-                      3 * (size_t)(khi - klo) * kLd * sizeof(__nv_bfloat16);
-  return launch_per_step(taps_mxu_exact2_kernel, smem, oyl, fxy, win, out,
-                         n_steps, G, KH, klo, khi, stream);
+  return launch_per_step(kExact2Kernels, Exact2Body<1>::kVBytes, oyl, fxy,
+                         win, out, n_steps, G, KH, klo, khi, stream);
 }

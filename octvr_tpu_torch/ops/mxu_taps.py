@@ -32,6 +32,17 @@ matrix bodies.  The probe's own KB (``:137``) is ``khi - klo`` whenever
   products in bf16 (exact: the rows are integers <= 255), the
   horizontal taps of each, then ``h0 (1-fy) + h1 fy``.
 
+On the card (csrc/mxu_taps.cu) A is a per-pixel gather, and B and B2
+run on the tensor cores: each step is one GEMM (the step's pixels x the
+visited rows x 128 columns) of ``wgmma.m64n128k16`` bf16 products with
+f32 accumulation, the one-hot A operand built in registers and the
+window staged once per step in shared memory, the taps read from V
+staged per warp.  B splits each f32 weight into three bf16 terms
+(hi + mid + lo, each the rounding of what the ones before it left) and
+takes three products into one accumulator: f32's accuracy, as the MXU's
+HIGHEST does, where TF32 would truncate the weights.  B2's two products
+are exact.
+
 A wrapper takes the plain version for CPU tensors and launches its
 kernel for CUDA tensors; there is no fallback from one to the other.
 ``LAUNCHES`` counts kernel launches in all, ``COUNTS`` per body
@@ -64,7 +75,7 @@ __all__ = [
 
 TH, TW = 8, 128  # a tile's output rows; lanes (pixels of a row, window columns)
 CHUNK = 16  # the fan's visit chunk (window rows)
-MAX_VISITED = 112  # visited rows the product kernels hold in shared memory
+MAX_VISITED = 112  # visited rows the product kernels take (one instance per 16)
 _PLAIN_PIXELS = 1 << 19  # output pixels per chunk of the plain products (V: 256 MB)
 
 LAUNCHES = 0
@@ -257,8 +268,9 @@ def fan(oyl, fxy, win, lo: int, hi: int):
 
 
 def mxu_folded(oyl, fxy, win, lo: int, hi: int):
-    """Body B on the tensors' device: the plain version on the CPU, the
-    f32 folded-product kernel (CUDA cores) on the card."""
+    """Body B on the tensors' device: the plain version on the CPU, on the
+    card the folded-product kernel: three bf16 ``wgmma`` products of the
+    weights split into hi + mid + lo terms, f32 accumulation."""
     _check(oyl, fxy, win, lo, hi)
     if oyl.device.type == "cpu":
         return mxu_folded_reference(oyl, fxy, win, lo, hi)
@@ -266,8 +278,9 @@ def mxu_folded(oyl, fxy, win, lo: int, hi: int):
 
 
 def mxu_exact2(oyl, fxy, win, lo: int, hi: int):
-    """Body B2 on the tensors' device: the plain version on the CPU, the
-    bf16 selection-product kernel (tensor cores) on the card."""
+    """Body B2 on the tensors' device: the plain version on the CPU, on
+    the card the two exact bf16 selection products on ``wgmma``, f32
+    accumulation."""
     _check(oyl, fxy, win, lo, hi)
     if oyl.device.type == "cpu":
         return mxu_exact2_reference(oyl, fxy, win, lo, hi)

@@ -6,8 +6,8 @@ It runs the probe's synthetic workload (``make_probe_inputs``:
 1,917 steps x G=8 tiles of 8x128 pixels at the defaults, about one 4K
 luma plane, taps in window rows [16, 64) of 80) through three kernels:
 A, the per-pixel gather (the fan's counterpart); B, the folded one-hot
-f32 product on the CUDA cores; B2, two exact bf16 selection products
-on the tensor cores.  Each is timed with CUDA events over ``--iters``
+f32 weights as three bf16 products (hi + mid + lo terms) and B2, two
+exact bf16 selection products, both on the tensor cores (``wgmma``).  Each is timed with CUDA events over ``--iters``
 calls after one warm-up call, B and B2 are held to A within 1e-3, and
 the last line is the probe's JSON line with its keys.
 
@@ -107,7 +107,7 @@ def main(argv=None):
         return outs, ms
 
     outs_a, ms_a = run(mxu_taps.fan, "A fan (per-pixel gather)")
-    outs_b, ms_b = run(mxu_taps.mxu_folded, "B folded f32 weights (f32 product)")
+    outs_b, ms_b = run(mxu_taps.mxu_folded, "B folded f32 weights (three bf16 products)")
     outs_b2, ms_b2 = run(mxu_taps.mxu_exact2, "B2 exact bf16 selections x2")
     err = max((a - b).abs().max().item() for a, b in zip(outs_a, outs_b))
     err2 = max((a - b).abs().max().item() for a, b in zip(outs_a, outs_b2))

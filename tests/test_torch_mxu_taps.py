@@ -9,7 +9,10 @@ compilation cache), at two settings: the defaults at 2 steps x G=2, and
 3 steps x G=1 with taps in rows [0, 32) of 32 (chunk 0, a different
 KB).  The port's workload is bit-equal to the probe's, and its plain
 versions of the three bodies match the captured outputs to max abs
-< 1e-3 (the probe's B2 bar)."""
+< 1e-3 (the probe's B2 bar).  B's Hopper kernel takes its f32 product as
+three bf16 products (the weights split into hi + mid + lo terms on the
+tensor cores); ``_folded_three_terms`` emulates that arithmetic on the
+CPU and is held to B's plain version and to the JAX body."""
 
 import contextlib
 import importlib.util
@@ -173,3 +176,94 @@ def test_entry_point_needs_a_card_and_prints_probe_keys(jax_runs, capsys):
     assert {k: line[k] for k in ("metric", "steps", "g", "kh", "visited_rows")} == {
         k: want[k] for k in ("metric", "steps", "g", "kh", "visited_rows")
     }
+
+
+ULPS4 = 2.0 ** -14  # four f32 ulps of a value in [128, 256)
+
+
+def _split3(w):
+    """f32 weights -> three bf16 terms (as f32): each the round-to-nearest
+    bf16 of what the terms before it left, as the folded kernel splits W
+    in registers (``split3`` in csrc/mxu_taps.cu)."""
+    hi = w.to(torch.bfloat16).float()
+    rest = w - hi
+    mid = rest.to(torch.bfloat16).float()
+    return hi, mid, (rest - mid).to(torch.bfloat16).float()
+
+
+def _folded_three_terms(oyl, fxy, win, lo, hi):
+    """B as the wgmma kernel computes it: the one-hot f32 weights W of
+    the plain version split into three bf16 terms, three f32 products of
+    the terms with the bf16 window (each product exact: 8-bit times 8-bit
+    significands), summed in f32, then the two horizontal taps."""
+    klo, khi = mxu_taps.visited_rows(lo, hi)
+    oy0, oy1, l0, l1, fx, fy = mxu_taps._unpack(oyl, fxy)
+    n = oy0.shape[0]
+    k = torch.arange(klo, khi)
+    w_t = (torch.where(mxu_taps._onehot_t(oy0, k), (1.0 - fy).reshape(n, -1, 1), 0.0)
+           + torch.where(mxu_taps._onehot_t(oy1, k), fy.reshape(n, -1, 1), 0.0))
+    rows = win[:, 0, klo:khi].to(torch.bfloat16).float()
+    hi_t, mid_t, lo_t = (torch.bmm(t, rows) for t in _split3(w_t))
+    v = ((hi_t + mid_t) + lo_t).reshape(*oy0.shape, mxu_taps.TW)
+    return mxu_taps._tiles(mxu_taps._lane(v, l0) * (1.0 - fx) + mxu_taps._lane(v, l1) * fx)
+
+
+def test_three_term_split_is_exact_on_probe_weights():
+    """hi + mid + lo gives back every f32 weight the probe makes (1 - fy,
+    fy and their sum) exactly; two terms alone leave up to ~4e-6, ~1e-3
+    of a gray level of 255 per tap."""
+    _, fxy, _ = mxu_taps_probe.make_probe_inputs(16, 8, 80, 16, 64)
+    fy = torch.from_numpy(fxy[:, :, 8:]).reshape(-1)
+    w = torch.cat([1.0 - fy, fy, (1.0 - fy) + fy])
+    hi, mid, lo = _split3(w)
+    assert torch.equal(hi.double() + mid.double() + lo.double(), w.double())
+    assert (hi.double() + mid.double() - w.double()).abs().max().item() > 1e-7
+
+
+@pytest.mark.parametrize("setting", sorted(SETTINGS))
+def test_folded_three_terms_match_plain_and_jax(jax_runs, setting):
+    """The three-term emulation within 2^-14 of B's plain version (four
+    f32 ulps of a value under 256: the two differ only in the order of
+    their f32 additions) and 1e-3 of the JAX probe's ``kern_mxu``
+    (Precision.HIGHEST)."""
+    s = SETTINGS[setting]
+    args, outs = jax_runs[setting][0]["kern_mxu"]
+    t = [torch.from_numpy(np.array(a)) for a in args]
+    got = _folded_three_terms(*t, s["lo"], s["hi"])
+    plain = mxu_taps.mxu_folded_reference(*t, s["lo"], s["hi"])
+    assert len(got) == len(outs) == s["g"]
+    for a, b, o in zip(got, plain, outs):
+        assert (a - b).abs().max().item() < ULPS4
+        assert np.abs(a.numpy() - o).max() < 1e-3
+
+
+def test_folded_three_terms_on_edge_taps():
+    """On the edge taps (rows at both ends of the visited range, a tap
+    row past it, lane 128) the emulation stays within 2^-14 of B's plain
+    version and 1e-3 of the f64 direct sample."""
+    lo, hi = 16, 64
+    arrays = edge_probe_inputs(lo, hi)
+    t = [torch.from_numpy(a) for a in arrays]
+    got = _folded_three_terms(*t, lo, hi)
+    for a, b in zip(got, mxu_taps.mxu_folded_reference(*t, lo, hi)):
+        assert (a - b).abs().max().item() < ULPS4
+    assert np.abs(np.stack([a.numpy() for a in got]) - _direct(*arrays, lo, hi)).max() < 1e-3
+
+
+def test_chip_smoke_taps_floors_at_probe_defaults():
+    """chip_smoke.py's kernel 8 bound at the probe's defaults (1,917 steps
+    x G=8, rows [16, 64), kb 48): the function's byte bound 0.1078 ms for
+    every body; the formulation floors 6 px kb 128 / 989e12 = 0.5853 ms
+    for B (three bf16 products), 0.3902 ms for B2 (two), and A's f32 FMAs
+    on the CUDA cores."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", PROBE.parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    px = 1917 * 8 * 8 * 128
+    got = {b: smoke._taps_bound(b, 1917, 8, 16, 64) for b in ("fan", "mxu_folded", "mxu_exact2")}
+    for body, (nbytes, flops, bound, by, floor) in got.items():
+        assert nbytes == 20 * px + 1917 * 48 * 128 * 4
+        assert by == "bytes" and round(bound, 4) == 0.1078, body
+    assert got["mxu_folded"][1] == 6 * px * 48 * 128 and abs(got["mxu_folded"][4] - 0.5853) < 1e-4
+    assert got["mxu_exact2"][1] == 4 * px * 48 * 128 and abs(got["mxu_exact2"][4] - 0.3902) < 1e-4
+    assert got["fan"][1] == 12 * px and got["fan"][4] == pytest.approx(12 * px / 67e12 * 1e3)

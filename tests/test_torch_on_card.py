@@ -343,20 +343,37 @@ TAPS = {
 }
 
 
-@pytest.mark.parametrize("steps,g", [(8, 2), (64, 8), ("edge", 2)])
+# (steps, g, kh, lo, hi): the probe's rows [16, 64) of 80 (kb 48, its
+# defaults), kb 16 and kb 112 (MAX_VISITED, the product kernels' most),
+# and 7 steps x G=3 (7 blocks of 48 M-tiles: a partial wave), or "edge"
+TAPS_CASES = {
+    "kb48-8x2": (8, 2, 80, 16, 64),
+    "kb48-64x8": (64, 8, 80, 16, 64),
+    "kb48-7x3": (7, 3, 80, 16, 64),
+    "kb16-7x3": (7, 3, 16, 0, 16),
+    "kb112-5x2": (5, 2, 112, 0, 112),
+    "edge": "edge",
+}
+
+
+@pytest.mark.parametrize("case", list(TAPS_CASES))
 @pytest.mark.parametrize("body", sorted(TAPS))
-def test_taps_kernel_matches_plain_on_card(cuda_device, body, steps, g):
-    """Kernel 8 (A, B, B2) on the probe's workload (KH 80, taps in rows
-    [16, 64)) and on the edge taps: f32 within 1e-3 of its plain version,
-    one launch counted per call."""
+def test_taps_kernel_matches_plain_on_card(cuda_device, body, case):
+    """Kernel 8 (A, and B and B2 on wgmma) at 16, 48 and 112 visited
+    rows, on a partial wave and on the edge taps: f32 within 1e-3 of its
+    plain version, one launch counted per call."""
     fn, ref = TAPS[body]
-    arrays = edge_probe_inputs() if steps == "edge" else make_probe_inputs(steps, g, 80, 16, 64)
+    if case == "edge":
+        (steps, g, kh, lo, hi), arrays = (2, 2, 80, 16, 64), edge_probe_inputs()
+    else:
+        steps, g, kh, lo, hi = TAPS_CASES[case]
+        arrays = make_probe_inputs(steps, g, kh, lo, hi)
     t = [torch.from_numpy(a).to(cuda_device) for a in arrays]
     mxu_taps.reset_counts()
-    got = fn(*t, 16, 64)
+    got = fn(*t, lo, hi)
     torch.cuda.synchronize()
     assert mxu_taps.COUNTS == {f"taps_{body}": 1} and mxu_taps.LAUNCHES == 1
-    want = ref(*t, 16, 64)
+    want = ref(*t, lo, hi)
     assert len(got) == len(want) == g
     for a, b in zip(got, want):
         assert a.shape == b.shape == (t[0].shape[0], 8, 128)
