@@ -28,7 +28,8 @@ Phases, each failing the run on any error:
      f. kernel 6 at NC=3 (the rgb band path) on the 96x256 fixture, with
         its frames launch, and on one band of the 4K rgb band-sharded
         plan;
-     g. kernel 8, the MXU-taps probe's three kernels (A per-pixel gather;
+     g. kernel 8, the MXU-taps probe's three kernels (A a gather from
+        the step's window staged in shared memory, plan in 16 B vectors;
         B the folded f32 weights as three bf16 products and B2 two exact
         bf16 selection products, both wgmma on the tensor cores), each
         against its plain version and the others, timed at the probe's
@@ -806,11 +807,11 @@ def _taps_grid_sample(oyl, fxy, win):
 
 
 def phase_mxu_taps():
-    """Kernel 8, the MXU-taps probe's three bodies (A: per-pixel gather;
-    B: the folded one-hot f32 weights as three bf16 products, B2: two
-    exact bf16 selection products, both wgmma on the tensor cores, the
-    taps read from the product staged in shared memory): each against
-    its plain
+    """Kernel 8, the MXU-taps probe's three bodies (A: a gather from the
+    step's window staged once in shared memory; B: the folded one-hot
+    f32 weights as three bf16 products, B2: two exact bf16 selection
+    products, both wgmma on the tensor cores, the taps read from the
+    product staged in shared memory): each against its plain
     version and the three against each other at 64 steps x G=8 and at
     the probe's defaults (f32 max abs < 1e-3), timed at the defaults with
     its bound, its plain version and grid_sample on the same function;
@@ -820,8 +821,9 @@ def phase_mxu_taps():
     from octvr_tpu_torch.ops import mxu_taps
     from octvr_tpu_torch.tools import mxu_taps_probe
 
-    log("== 3g. kernel 8 (the MXU-taps probe): A fan, B folded f32 weights (three bf16 wgmma products), "
-        "B2 exact bf16 selections (two wgmma products)")
+    log("== 3g. kernel 8 (the MXU-taps probe): A fan (the step's window staged in shared memory, the plan "
+        "in 16 B vectors), B folded f32 weights (three bf16 wgmma products), B2 exact bf16 selections "
+        "(two wgmma products)")
     t_phase = time.time()
     lo, hi = TAPS["lo"], TAPS["hi"]
     names = ("fan", "mxu_folded", "mxu_exact2")
@@ -1747,7 +1749,8 @@ def main(argv):
          timed(sharded, "sharded_nc1_bf16", "sharded_nc2_bf16"), err_concat),
         ("remap concat-source NC=3 (band-sharded rgb, source windows), kernel 6", src, f"{pr}:1249",
          timed(sharded_rgb, "sharded_nc3_bf16"), err_concat_nc3),
-        ("MXU-taps probe A, per-pixel gather (fan), kernel 8", taps_src, f"{probe}:100", taps["fan"], 0.0),
+        ("MXU-taps probe A, gather from the step's window staged in shared memory, plan in 16 B vectors "
+         "(fan), kernel 8", taps_src, f"{probe}:100", taps["fan"], 0.0),
         ("MXU-taps probe B, folded f32 weights as three bf16 wgmma products, A from registers, kernel 8",
          taps_src, f"{probe}:140", taps["mxu_folded"], 0.0),
         ("MXU-taps probe B2, two exact bf16 selection wgmma products, A from registers, kernel 8", taps_src,

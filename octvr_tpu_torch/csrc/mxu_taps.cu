@@ -31,13 +31,22 @@
 // tile g's output one contiguous [N, 8, 128] slice.
 //
 // Bounds on this card, and what each design does about them:
-//   - taps_fan_kernel: one thread per output pixel with plain loads, as
-//     csrc/remap.cu.  The TPU's visit loop exists only because Mosaic has
-//     no per-element 2-D gather (docs/kernel-notes.md:266-273); CUDA has
-//     one, so each thread reads its 16 B of plan and 4 window values and
-//     writes 4 B.  Bound by bytes: the plan, the visited window rows
-//     (L2 hits after the first touch: 1,024 pixels share a window) and
-//     the store, all coalesced across a warp.
+//   - taps_fan_kernel: a gather, not the TPU's visit loop, which exists
+//     only because Mosaic has no per-element 2-D gather
+//     (docs/kernel-notes.md:266-273).  Bound by bytes: per pixel 16 B of
+//     plan and a 4 B store, the visited rows once per step.  One block
+//     per step: the step's G x 1,024 pixels share one window, so the
+//     block copies its visited rows (one contiguous kb x 512 B run of
+//     win) into shared memory once, with 16 B cp.async, while its first
+//     plan vectors are in flight; each SM's L1 no longer pulls the window
+//     in a few sectors per divergent gather.  A thread takes four
+//     adjacent pixels of a tile row (one 16 B vector each of oy, l, fx,
+//     fy; one 16 B store) in every tile of the step, the next tile's
+//     vectors loaded before this tile's gathers; kFanBlocks blocks per SM
+//     keep the plan streams in flight.  The four taps of a pixel are
+//     shared-memory reads, guarded by row and lane first.  At
+//     most kMaxStaged visited rows are staged (56 KB); a wider window
+//     takes the same kernel gathering from global memory (L1/L2).
 //   - taps_mxu_folded_kernel and taps_mxu_exact2_kernel: every pixel of
 //     a step shares its window, so a step is one GEMM, M = the step's
 //     G x 1,024 pixels, K = kb visited rows, N = 128 columns, and the
@@ -79,7 +88,10 @@ namespace {
 constexpr int kTH = 8;             // output rows of a tile
 constexpr int kTW = 128;           // lanes: pixels of a row, window columns
 constexpr int kTile = kTH * kTW;   // output pixels of a tile
-constexpr int kThreads = 256;      // the fan kernel's block
+constexpr int kVec = 4;            // the fan's pixels per 16 B plan vector
+constexpr int kFanThreads = kTile / kVec;  // the fan's block: a tile per pass
+constexpr int kFanBlocks = 4;      // fan blocks resident per SM: <= 64 registers
+constexpr int kMaxStaged = 112;    // visited rows the fan stages (56 KB)
 constexpr int kWarpgroup = 128;
 constexpr int kGroups = 2;         // consumer warpgroups of a product block
 constexpr int kProdThreads = kGroups * kWarpgroup;
@@ -138,27 +150,99 @@ __device__ __forceinline__ float* out_at(float* out, int n_steps, int64_t n,
   return out + ((int64_t)g * n_steps + n) * kTile + p;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Four adjacent pixels' plan words: one 16 B vector of each row kind.
+struct PlanVec {
+  uint4 oy, l;
+  float4 fx, fy;
+};
+
+// Pixels p..p+3 of tile t (n * G + g); read once, so streamed past L1.
+__device__ __forceinline__ PlanVec load_vec(const uint32_t* __restrict__ oyl,
+                                            const float* __restrict__ fxy,
+                                            int64_t t, int p) {
+  const int64_t q = t * 2 * kTile + p;
+  return {__ldcs(reinterpret_cast<const uint4*>(oyl + q)),
+          __ldcs(reinterpret_cast<const uint4*>(oyl + q + kTile)),
+          __ldcs(reinterpret_cast<const float4*>(fxy + q)),
+          __ldcs(reinterpret_cast<const float4*>(fxy + q + kTile))};
+}
+
+// One pixel of the fan: rows points at window row klo; a tap row outside
+// [klo, klo + kb) adds 0 and is never read.
+__device__ __forceinline__ float fan_pixel(const int32_t* rows, int klo, int kb,
+                                           uint32_t oy, uint32_t l, float fx,
+                                           float fy) {
+  const int r0 = (int)(oy & 0xFFFFu) - klo, r1 = (int)(oy >> 16) - klo;
+  const int l0 = (int)(l & 0xFFFFu), l1 = (int)(l >> 16);
+  const float a0 = 1.0f - fx, a1 = fx;
+  float acc = 0.0f;
+  if ((unsigned)r0 < (unsigned)kb)
+    acc += (1.0f - fy) * lane_mix(rows + r0 * kTW, l0, l1, a0, a1);
+  if ((unsigned)r1 < (unsigned)kb)
+    acc += fy * lane_mix(rows + r1 * kTW, l0, l1, a0, a1);
+  return acc;
+}
+
+__device__ __forceinline__ float4 fan_vec(const int32_t* rows, int klo, int kb,
+                                          const PlanVec& v) {
+  return {fan_pixel(rows, klo, kb, v.oy.x, v.l.x, v.fx.x, v.fy.x),
+          fan_pixel(rows, klo, kb, v.oy.y, v.l.y, v.fx.y, v.fy.y),
+          fan_pixel(rows, klo, kb, v.oy.z, v.l.z, v.fx.z, v.fy.z),
+          fan_pixel(rows, klo, kb, v.oy.w, v.l.w, v.fx.w, v.fy.w)};
+}
+
+// Step n's G tiles, gathered from rows (window row klo of step n, in
+// shared or global memory): the thread's pixels p..p+3 of each tile, the
+// next tile's plan vectors loaded before this tile's gathers.  next holds
+// tile 0's on entry.
+__device__ __forceinline__ void fan_step(PlanVec next,
+                                         const uint32_t* __restrict__ oyl,
+                                         const float* __restrict__ fxy,
+                                         const int32_t* rows,
+                                         float* __restrict__ out, int n_steps,
+                                         int G, int klo, int kb, int64_t n,
+                                         int p) {
+  for (int g = 0; g < G; ++g) {
+    const PlanVec cur = next;
+    if (g + 1 < G) next = load_vec(oyl, fxy, n * G + g + 1, p);
+    __stcs(reinterpret_cast<float4*>(out_at(out, n_steps, n, g, p)),
+           fan_vec(rows, klo, kb, cur));
+  }
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src)
+               : "memory");
+}
+
+// One block per step.  kStaged: the visited rows [klo, khi) (kb <=
+// kMaxStaged, kb x 512 B of dynamic shared memory) are copied into shared
+// memory once, the gathers read them there; else the gathers read win.
+template <bool kStaged>
+__global__ void __launch_bounds__(kFanThreads, kFanBlocks)
     taps_fan_kernel(const uint32_t* __restrict__ oyl,
                     const float* __restrict__ fxy,
                     const int32_t* __restrict__ win, float* __restrict__ out,
                     int n_steps, int G, int KH, int klo, int khi) {
-  const int64_t q = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  const int64_t t = q / kTile;  // every block lies inside one tile
-  const int p = (int)(q % kTile);
-  const int64_t n = t / G;
-  const int g = (int)(t % G);
-  RawPixel raw[1];
-  load_raw(raw, oyl, fxy, t, p);
-  const Pixel px = unpack(raw[0]);
-  const int32_t* w = win + n * KH * kTW;
-  const float a0 = 1.0f - px.fx, a1 = px.fx;
-  float acc = 0.0f;
-  if (px.oy0 >= klo && px.oy0 < khi)
-    acc += (1.0f - px.fy) * lane_mix(w + px.oy0 * kTW, px.l0, px.l1, a0, a1);
-  if (px.oy1 >= klo && px.oy1 < khi)
-    acc += px.fy * lane_mix(w + px.oy1 * kTW, px.l0, px.l1, a0, a1);
-  *out_at(out, n_steps, n, g, p) = acc;
+  extern __shared__ __align__(16) int32_t staged_rows[];
+  const int64_t n = blockIdx.x;
+  const int kb = khi - klo;
+  const int p = kVec * threadIdx.x;
+  const int32_t* w = win + (n * KH + klo) * kTW;
+  if constexpr (kStaged) {
+    const uint32_t dst = (uint32_t)__cvta_generic_to_shared(staged_rows);
+    for (int i = threadIdx.x; i < kb * kTW / kVec; i += kFanThreads)
+      cp_async16(dst + 16 * i, w + kVec * i);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  const PlanVec first = load_vec(oyl, fxy, n * G, p);
+  if constexpr (kStaged) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    fan_step(first, oyl, fxy, staged_rows, out, n_steps, G, klo, kb, n, p);
+  } else {
+    fan_step(first, oyl, fxy, w, out, n_steps, G, klo, kb, n, p);
+  }
 }
 
 // ---- the tensor-core bodies ----------------------------------------
@@ -560,16 +644,29 @@ int launch_per_step(const ProductKernel* kernels, int v_bytes, const void* oyl,
 
 // Plain C entry points.  Every pointer is a device pointer; stream is a
 // cudaStream_t; [klo, khi) are the visited rows, multiples of 16 within
-// the window (at most 112 of them for the product kernels).  Return:
-// cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// the window (at most 112 of them for the product kernels); the fan's
+// pointers 16 B aligned.  Return: cudaGetLastError() after the launch
+// (0 = launched), or cudaErrorInvalidValue (cudaErrorMisalignedAddress)
+// for arguments the kernel does not take.
 extern "C" int octvr_taps_fan(const void* oyl, const void* fxy,
                               const void* win, void* out, int n_steps, int G,
                               int KH, int klo, int khi, void* stream) {
   if (!valid(n_steps, G, KH, klo, khi)) return (int)cudaErrorInvalidValue;
-  const long long blocks = (long long)n_steps * G * (kTile / kThreads);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  taps_fan_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  // 16 B plan vectors, window copies and stores
+  if (((uintptr_t)oyl | (uintptr_t)fxy | (uintptr_t)win | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  // The instance is chosen by shape alone: a window of up to kMaxStaged
+  // visited rows is staged in shared memory (kb x 512 B, at most 56 KB);
+  // a wider one is gathered from global memory by the same kernel.
+  const bool staged = khi - klo <= kMaxStaged;
+  const size_t smem = staged ? (size_t)(khi - klo) * kTW * sizeof(int32_t) : 0;
+  const auto kernel = staged ? taps_fan_kernel<true> : taps_fan_kernel<false>;
+  if (staged) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<n_steps, kFanThreads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)oyl, (const float*)fxy, (const int32_t*)win,
       (float*)out, n_steps, G, KH, klo, khi);
   return (int)cudaGetLastError();

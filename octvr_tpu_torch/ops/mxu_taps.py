@@ -32,8 +32,12 @@ matrix bodies.  The probe's own KB (``:137``) is ``khi - klo`` whenever
   products in bf16 (exact: the rows are integers <= 255), the
   horizontal taps of each, then ``h0 (1-fy) + h1 fy``.
 
-On the card (csrc/mxu_taps.cu) A is a per-pixel gather, and B and B2
-run on the tensor cores: each step is one GEMM (the step's pixels x the
+On the card (csrc/mxu_taps.cu) A is a gather: one block per step
+stages the step's visited rows once in shared memory (up to
+``MAX_STAGED`` of them; a wider window is gathered from global memory by
+a second instance of the kernel, chosen by shape), and each thread reads
+four adjacent pixels' plan as 16-byte vectors.  B and B2 run on the
+tensor cores: each step is one GEMM (the step's pixels x the
 visited rows x 128 columns) of ``wgmma.m64n128k16`` bf16 products with
 f32 accumulation, the one-hot A operand built in registers and the
 window staged once per step in shared memory, the taps read from V
@@ -59,6 +63,7 @@ from .pyramid import require_full_f32
 __all__ = [
     "COUNTS",
     "LAUNCHES",
+    "MAX_STAGED",
     "MAX_VISITED",
     "TH",
     "TW",
@@ -76,6 +81,7 @@ __all__ = [
 TH, TW = 8, 128  # a tile's output rows; lanes (pixels of a row, window columns)
 CHUNK = 16  # the fan's visit chunk (window rows)
 MAX_VISITED = 112  # visited rows the product kernels take (one instance per 16)
+MAX_STAGED = 112  # visited rows the fan's kernel stages in shared memory (kMaxStaged)
 _PLAIN_PIXELS = 1 << 19  # output pixels per chunk of the plain products (V: 256 MB)
 
 LAUNCHES = 0
@@ -239,6 +245,8 @@ def _launch(body, oyl, fxy, win, lo, hi):
     klo, khi = visited_rows(lo, hi)
     if body != "fan" and khi - klo > MAX_VISITED:
         raise ValueError(f"{khi - klo} visited rows; the {body} kernel holds at most {MAX_VISITED}")
+    if body == "fan" and any(x.data_ptr() % 16 for x in (oyl, fxy, win)):
+        raise ValueError("the fan kernel reads oyl, fxy and win in 16-byte vectors: they must be 16-byte aligned")
     n, g, kh = oyl.shape[0], oyl.shape[1], win.shape[2]
     out = torch.empty((g, n, TH, TW), dtype=torch.float32, device=oyl.device)
     fn = getattr(load_library("tools"), _ENTRIES[body])
@@ -259,8 +267,10 @@ def _launch(body, oyl, fxy, win, lo, hi):
 
 
 def fan(oyl, fxy, win, lo: int, hi: int):
-    """Body A on the tensors' device: the plain version on the CPU, the
-    per-pixel gather kernel on the card."""
+    """Body A on the tensors' device: the plain version on the CPU, on
+    the card the gather kernel: the step's window staged once in shared
+    memory (at most ``MAX_STAGED`` visited rows, else gathered from
+    global memory), the plan read in 16-byte vectors."""
     _check(oyl, fxy, win, lo, hi)
     if oyl.device.type == "cpu":
         return fan_reference(oyl, fxy, win, lo, hi)

@@ -5,9 +5,10 @@ The JAX probe's bodies are closures inside its ``main()``, so it is run
 as a script in interpret mode with ``pallas_call`` wrapped to record the
 inputs and outputs of each launch (``jax.jit`` made the identity so the
 recorder sees arrays, ``jax.config.update`` a no-op so the probe sets no
-compilation cache), at two settings: the defaults at 2 steps x G=2, and
+compilation cache), at three settings: the defaults at 2 steps x G=2,
 3 steps x G=1 with taps in rows [0, 32) of 32 (chunk 0, a different
-KB).  The port's workload is bit-equal to the probe's, and its plain
+KB), and 2 steps x G=1 with taps in rows [8, 128) of 144 (128 visited
+rows, wider than A's kernel stages in shared memory).  The port's workload is bit-equal to the probe's, and its plain
 versions of the three bodies match the captured outputs to max abs
 < 1e-3 (the probe's B2 bar).  B's Hopper kernel takes its f32 product as
 three bf16 products (the weights split into hi + mid + lo terms on the
@@ -37,6 +38,9 @@ PROBE = Path(__file__).resolve().parents[1] / "tools" / "mxu_taps_probe.py"
 SETTINGS = {
     "defaults": dict(steps=2, g=2, kh=80, lo=16, hi=64),
     "chunk0": dict(steps=3, g=1, kh=32, lo=0, hi=32),
+    # 128 visited rows, one chunk past what A's kernel stages in shared
+    # memory (MAX_STAGED): the width its global-memory instance gathers
+    "wide": dict(steps=2, g=1, kh=144, lo=8, hi=128),
 }
 BODIES = {
     "kern_fan": mxu_taps.fan_reference,
@@ -86,6 +90,11 @@ def jax_runs():
         with pytest.MonkeyPatch.context() as mp:
             runs[name] = _run_jax_probe(mp, **setting)
     return runs
+
+
+def test_wide_setting_is_past_the_fans_staging_limit():
+    klo, khi = mxu_taps.visited_rows(SETTINGS["wide"]["lo"], SETTINGS["wide"]["hi"])
+    assert khi - klo == mxu_taps.MAX_STAGED + mxu_taps.CHUNK
 
 
 @pytest.mark.parametrize("setting", sorted(SETTINGS))

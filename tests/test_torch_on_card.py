@@ -345,13 +345,20 @@ TAPS = {
 
 # (steps, g, kh, lo, hi): the probe's rows [16, 64) of 80 (kb 48, its
 # defaults), kb 16 and kb 112 (MAX_VISITED, the product kernels' most),
-# and 7 steps x G=3 (7 blocks of 48 M-tiles: a partial wave), or "edge"
+# 7 steps x G=3 (7 blocks of 48 M-tiles: a partial wave), one step at
+# G=1, fewer steps than the card's 132 SMs, a prime step count, taps from
+# lo = 21 (not a multiple of 16: the visited rows are still [16, 64)), or
+# "edge"
 TAPS_CASES = {
     "kb48-8x2": (8, 2, 80, 16, 64),
     "kb48-64x8": (64, 8, 80, 16, 64),
     "kb48-7x3": (7, 3, 80, 16, 64),
     "kb16-7x3": (7, 3, 16, 0, 16),
     "kb112-5x2": (5, 2, 112, 0, 112),
+    "kb48-1x1": (1, 1, 80, 16, 64),
+    "kb48-100x2": (100, 2, 80, 16, 64),
+    "kb48-293x1": (293, 1, 80, 16, 64),
+    "lo21-4x2": (4, 2, 80, 21, 57),
     "edge": "edge",
 }
 
@@ -393,4 +400,46 @@ def test_taps_wrapper_raises_on_inputs_it_does_not_take(cuda_device, body):
         fn(oyl, fxy, win[:, :, :56].contiguous(), 16, 50)
     with pytest.raises(ValueError, match="contiguous"):
         fn(oyl, fxy, win.transpose(2, 3).contiguous().transpose(2, 3), 16, 64)
+    assert mxu_taps.LAUNCHES == 0
+
+
+# A's windows around its staging limit: kb = MAX_STAGED from lo = 16 in a
+# taller window (the staged instance's widest), one chunk wider (the
+# instance that gathers from global memory), and the edge taps at that
+# width (a tap row at khi = KH, lanes 127 and 128)
+FAN_WIDE_CASES = {
+    "staged-widest": (3, 2, 144, 16, 16 + mxu_taps.MAX_STAGED),
+    "global-one-chunk-wider": (3, 2, 144, 16, 32 + mxu_taps.MAX_STAGED),
+    "global-edge": (2, 2, 128, 0, 128),
+}
+
+
+@pytest.mark.parametrize("case", list(FAN_WIDE_CASES))
+def test_fan_kernel_around_its_staging_limit(cuda_device, case):
+    """A at the most visited rows its kernel stages in shared memory and
+    one chunk past them (the products take at most MAX_VISITED): f32
+    within 1e-3 of its plain version, one launch counted per call."""
+    steps, g, kh, lo, hi = FAN_WIDE_CASES[case]
+    arrays = edge_probe_inputs(lo, hi, kh) if "edge" in case else make_probe_inputs(steps, g, kh, lo, hi)
+    t = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    mxu_taps.reset_counts()
+    got = mxu_taps.fan(*t, lo, hi)
+    torch.cuda.synchronize()
+    assert mxu_taps.COUNTS == {"taps_fan": 1} and mxu_taps.LAUNCHES == 1
+    want = mxu_taps.fan_reference(*t, lo, hi)
+    assert len(got) == len(want) == g
+    for a, b in zip(got, want):
+        assert a.shape == b.shape == (steps, 8, 128)
+        assert (a - b).abs().max().item() < 1e-3
+
+
+def test_fan_wrapper_raises_on_misaligned_inputs(cuda_device):
+    """A reads its inputs in 16-byte vectors: a contiguous input that
+    starts 4 bytes into its storage is refused before any launch."""
+    oyl, fxy, win = (torch.from_numpy(a).to(cuda_device) for a in make_probe_inputs(4, 2, 80, 16, 64))
+    shifted = torch.empty(oyl.numel() + 1, dtype=oyl.dtype, device=cuda_device)[1:].view(oyl.shape)
+    shifted.copy_(oyl)
+    mxu_taps.reset_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mxu_taps.fan(shifted, fxy, win, 16, 64)
     assert mxu_taps.LAUNCHES == 0
