@@ -76,7 +76,38 @@ Phases, each failing the run on any error:
      against phase 5's Mapper output;
      b. the rgb band path: the same through ShardedMapper(pipeline="rgb")
         (kernel 6 at NC=3, one launch per frame), against phase 5b's rgb
-        Mapper output.
+        Mapper output;
+  7. the streaming path (runtime.AsyncMultiMapper: pinned and device
+     rings on an H2D stream, the stitch on its own stream, a D2H
+     stream), each run with the remap counts reset just before it and
+     read just after:
+     a. over phase 5's Mapper, 48 host frame sets in, host frames out:
+        every output bit-identical to Mapper.stitch of its set, in
+        order; frames/s host to host, the three stage timers, H2D and
+        D2H GB/s beside phase 5's ms/frame;
+     b. the checksum drain from host frame sets and from the
+        device-resident ones (no H2D), its checksums the reference's;
+        then 3 rounds, in turns, of the stitch dispatch's host ms/frame
+        alone (main thread, own thread) and inside the pipeline (device
+        frames with the checksum drain, host frames with the host
+        drain), and their medians;
+     c. two outputs on a small rig (two 512^2 fisheyes -> 512x256) with
+        gain_modes [0, 0]: both bit-identical to direct stitch calls,
+        the copier's with the owner's gains;
+     d. over ShardedMapper: a make_mesh(2, 2) one on the small rig fed 5
+        frame sets (the last batch padded: every real frame out, no
+        padding frame), and phase 6's 4K one; each output equal to
+        stitch_batch called directly;
+     e. ``python -m octvr_tpu_torch.cli.stream`` as a process on the
+        card: on the small rig from raw files (6 frames, each within the
+        Mapper bars of the port on the CPU: per plane mean < 0.2 and max
+        <= 2), and at 4K from the synthetic source with --timers (48
+        frames, its "# done" fps); ``python -m octvr_tpu_torch.cli.map``
+        on the card on the small rig's PNGs (feather blend, gains): the
+        PNG within the map CLI's RGB bars of the same steps by the port
+        on the CPU (per channel mean < 0.2, max <= 6), gains within 1e-3;
+     f. ``python -m octvr_tpu_torch.cli.monkey`` on the small rig's NV12
+        feeds: every frame equal to FastMapper.stitch_nv12's.
 Kernel times (``ms``, ``library_ms``) are device times
 (``device_ms``): K back-to-back calls captured in one CUDA graph, K
 enough for ~2 ms of work, replayed in 5 CUDA-event windows; the median
@@ -1328,6 +1359,7 @@ def phase_main_path(mt, t_template, frame_sets):
         "out0": out,
         "gains0": gains,
         "ms_frame": ms_frame,
+        "ms_enqueue": ms_enqueue,
         "nc1": {"launches": counts["nc1_bf16"], "err": err},
         "nc2": {"launches": counts["nc2_bf16"], "err": err},
     }
@@ -1565,7 +1597,7 @@ def phase_sharded(host, t_host, frame_sets, main_path):
         raise AssertionError("kernel 6 disagrees at the sharded path's launches")
     del ys, uvs, bufs
     profile(lambda fs: sm.stitch_batch([f[None] for f in fs]), sets, ms1)
-    return {"launches": counts1["concat_nc1_bf16"] + counts1["concat_nc2_bf16"], "err": err}
+    return {"launches": counts1["concat_nc1_bf16"] + counts1["concat_nc2_bf16"], "err": err, "sm": sm}
 
 
 def phase_sharded_rgb(host, t_host, frame_sets, rgb_path):
@@ -1630,6 +1662,367 @@ def phase_sharded_rgb(host, t_host, frame_sets, rgb_path):
     del k, r, parts, src
     profile(lambda fs: sm.stitch_batch([f[None] for f in fs]), sets, ms)
     return {"launches": counts["concat_nc3_bf16"], "err": err}
+
+
+STREAM_FRAMES = 48  # 7a-7b: frame sets through the pipeline
+SMALL_CAM = 512  # 7c-7f: two 512^2 fisheyes -> 512x256
+
+
+def _run_stream(amm, sets):
+    """Pushes every set, then the end of the stream, from a thread while
+    popping here: (the outputs in pop order, wall seconds).  close()
+    included; an extra pop must end the stream."""
+    import threading
+
+    def push_all():
+        for fs in sets:
+            amm.push(fs)
+        amm.close_input()
+
+    pusher = threading.Thread(target=push_all)
+    got = []
+    try:
+        t0 = time.time()
+        pusher.start()
+        for _ in sets:
+            got.append(amm.pop())
+        wall = time.time() - t0
+        pusher.join(timeout=60)
+        if pusher.is_alive():
+            raise AssertionError("the pusher did not finish")
+        try:
+            amm.pop()
+            raise AssertionError("the pipeline gave more outputs than frame sets pushed")
+        except StopIteration:
+            pass
+    finally:
+        amm.close()
+    return got, wall
+
+
+def _stats_line(st, n, wall):
+    gb = lambda v: "n/a" if v is None else f"{v:.2f}"  # noqa: E731
+    return (f"{n} frames in {wall:.3f} s: {n / wall:.2f} frames/s host to host ({wall / n * 1e3:.3f} ms/frame); "
+            f"[Timer stitch] upload {st['upload_ms']:.3f}, dispatch {st['dispatch_ms']:.3f}, drain "
+            f"{st['drain_ms']:.3f} ms/frame; H2D {st['h2d_bytes'] / n / 1e6:.1f} MB/frame at {gb(st['h2d_GBps'])} "
+            f"GB/s, D2H {st['d2h_bytes'] / n / 1e6:.1f} MB/frame at {gb(st['d2h_GBps'])} GB/s")
+
+
+def phase_stream_4k(mapper, frame_sets, main_path):
+    """7a-7b: the AsyncMultiMapper over phase 5's 4K yuv420 Mapper.  7a:
+    host numpy frame sets through the pinned and device rings, host
+    drain, every output bit-identical to Mapper.stitch of its own set,
+    in order.  7b: the checksum drain, fed host frame sets and then the
+    device-resident ones (no H2D), its fetched checksums those of 7a's
+    reference frames.  Returns 7a's numbers and the reference."""
+    from octvr_tpu_torch.ops import cuda_remap
+    from octvr_tpu_torch.runtime import AsyncMultiMapper
+
+    log(f"== 7a. AsyncMultiMapper over phase 5's 4K Mapper, {STREAM_FRAMES} host frame sets, drain host "
+        f"(phase 5 Mapper.stitch: {main_path['ms_frame']:.3f} ms/frame, enqueue {main_path['ms_enqueue']:.3f})")
+    t0 = time.time()
+    host_sets = [[f.cpu().numpy() for f in fs] for fs in frame_sets]
+    ref = [mapper.stitch(fs)[0].cpu().numpy() for fs in frame_sets]
+    ref_chk = [int(r[::101, ::103].astype(np.int64).sum()) for r in ref]
+    log(f"  {len(ref)} reference frames by Mapper.stitch in {time.time() - t0:.1f} s")
+    sets = [host_sets[n % len(host_sets)] for n in range(STREAM_FRAMES)]
+    amm = AsyncMultiMapper([mapper])
+    cuda_remap.reset_counts()
+    got, wall = _run_stream(amm, sets)
+    counts = dict(cuda_remap.COUNTS)
+    st = amm.stats()
+    log(f"  {_stats_line(st, STREAM_FRAMES, wall)}")
+    log(f"  remap launches: {counts}")
+    if counts != {"nc1_bf16": STREAM_FRAMES, "nc2_bf16": STREAM_FRAMES}:
+        raise AssertionError(f"expected {STREAM_FRAMES} launches of each of nc1_bf16 and nc2_bf16")
+    bad = [n for n, outs in enumerate(got) if not np.array_equal(outs[0], ref[n % len(ref)])]
+    log(f"  outputs bit-identical to Mapper.stitch, in order: {STREAM_FRAMES - len(bad)} of {STREAM_FRAMES}")
+    if bad:
+        raise AssertionError(f"pipeline frames {bad[:8]} differ from Mapper.stitch of their sets")
+    del got
+    a = {"fps": STREAM_FRAMES / wall, **st}
+
+    log("== 7b. the same with drain=\"checksum\": host frame sets, then device-resident ones")
+    res = {}
+    for label, src in (("host frames", host_sets), ("device frames", frame_sets)):
+        sets = [src[n % len(src)] for n in range(STREAM_FRAMES)]
+        amm = AsyncMultiMapper([mapper], drain="checksum")
+        cuda_remap.reset_counts()
+        got, wall = _run_stream(amm, sets)
+        counts = dict(cuda_remap.COUNTS)
+        st = amm.stats()
+        log(f"  {label}: {_stats_line(st, STREAM_FRAMES, wall)}; launches {counts}")
+        want = [[float(ref_chk[n % len(ref_chk)]) if n % 8 == 7 else 0.0] for n in range(STREAM_FRAMES)]
+        if got != want:
+            raise AssertionError(f"checksum drain ({label}) disagrees with the reference frames")
+        if counts != {"nc1_bf16": STREAM_FRAMES, "nc2_bf16": STREAM_FRAMES}:
+            raise AssertionError(f"checksum drain ({label}) did not launch the kernels once per frame")
+        res[label] = {"fps": STREAM_FRAMES / wall, **st}
+    log(f"  fetched checksums equal the reference frames' ({STREAM_FRAMES // 8} fetches each)")
+    log(f"  dispatch host ms/frame: 7a {a['dispatch_ms']:.3f}, 7b host {res['host frames']['dispatch_ms']:.3f}, "
+        f"7b device {res['device frames']['dispatch_ms']:.3f}; phase 5 enqueue {main_path['ms_enqueue']:.3f}")
+    res["rounds"] = _dispatch_rounds(mapper, frame_sets, host_sets)
+    return {"7a": a, "7b": res}
+
+
+DISPATCH_ROUNDS = 2
+
+
+def _dispatch_rounds(mapper, frame_sets, host_sets):
+    """How far the pipeline's side threads slow its dispatch thread, on a
+    host whose pace drifts from one second to the next: rounds of four
+    runs in turns over the 24 frame sets, each a host ms/frame of the
+    stitch dispatch: Mapper.stitch alone on the main thread (the default
+    stream; enqueue, synchronised before and after), alone in a thread
+    of its own on a side stream, the pipeline from device-resident
+    frames with the checksum drain (its side threads nearly idle), and
+    the pipeline from host frames with the host drain (7a's).  Prints
+    each round and the medians."""
+    import threading
+
+    from octvr_tpu_torch.runtime import AsyncMultiMapper
+
+    def enqueue(stream):
+        with torch.cuda.stream(stream):
+            for fs in frame_sets[:2]:
+                mapper.stitch(fs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for fs in frame_sets:
+                mapper.stitch(fs)
+            ms = (time.perf_counter() - t0) / len(frame_sets) * 1e3
+        torch.cuda.synchronize()
+        return ms
+
+    def own_thread():
+        box = {}
+        t = threading.Thread(target=lambda: box.update(ms=enqueue(torch.cuda.Stream())))
+        t.start()
+        t.join()
+        return box["ms"]
+
+    def pipeline(sets, drain):
+        amm = AsyncMultiMapper([mapper], drain=drain)
+        _run_stream(amm, sets)
+        return amm.stats()["dispatch_ms"]
+
+    runs = {
+        "alone, main thread": lambda: enqueue(torch.cuda.default_stream()),
+        "alone, own thread": own_thread,
+        "pipeline, device frames, checksum drain": lambda: pipeline(frame_sets, "checksum"),
+        "pipeline, host frames, host drain": lambda: pipeline(host_sets, "host"),
+    }
+    got = {k: [] for k in runs}
+    t0 = time.time()
+    for r in range(DISPATCH_ROUNDS):
+        for k, run in runs.items():
+            got[k].append(run())
+        log(f"  dispatch host ms/frame, round {r + 1}: " + "; ".join(f"{k} {v[-1]:.3f}" for k, v in got.items()))
+    med = {k: float(np.median(v)) for k, v in got.items()}
+    log("  medians: " + "; ".join(f"{k} {v:.3f}" for k, v in med.items())
+        + f" ({DISPATCH_ROUNDS} rounds in {time.time() - t0:.1f} s)")
+    return med
+
+
+def _small_stream_rig():
+    """Two 512^2 fisheyes -> 512x256 (tests/rigs.py's lens)."""
+    from octvr_tpu_torch.template import compile_rig
+    from rigs import two_fisheye_rig
+
+    rig = two_fisheye_rig()
+    for spec in rig["inputs"]:
+        spec["options"]["width"] = spec["options"]["height"] = SMALL_CAM
+    mt = compile_rig(rig, 512, 256)
+    mt.create_masks()
+    return mt, [(SMALL_CAM, SMALL_CAM)] * 2
+
+
+def _small_sets(n, seed):
+    rng = np.random.default_rng(seed)
+    return [_in_gamut_frames(rng, 2, SMALL_CAM, [1.15, 0.85]) for _ in range(n)]
+
+
+def phase_stream_small(mt, sizes):
+    """7c: two outputs with gain_modes [0, 0] on the small rig, each
+    bit-identical to a direct stitch (the copier with the owner's
+    gains).  7d (small): a ShardedMapper at make_mesh(2, 2) fed 5 frame
+    sets: the last batch padded, its real frame out, no padding frame."""
+    from octvr_tpu_torch.parallel import ShardedMapper, make_mesh
+    from octvr_tpu_torch.runtime import AsyncMultiMapper
+    from octvr_tpu_torch.stitch import Mapper
+
+    log("== 7c. small rig, two outputs, gain_modes [0, 0] (output 1 copies output 0's gains)")
+    m0 = Mapper(mt, sizes, blend=16, device="cuda")
+    m1 = Mapper(mt, sizes, blend=-8, device="cuda")
+    sets = _small_sets(6, seed=70)
+    got, _ = _run_stream(AsyncMultiMapper([m0, m1], gain_modes=[0, 0]), sets)
+    for n, (outs, fs) in enumerate(zip(got, sets)):
+        o0, g0 = m0.stitch(fs)
+        o1, _ = m1.stitch(fs, gains=g0)
+        if not (np.array_equal(outs[0], o0.cpu().numpy()) and np.array_equal(outs[1], o1.cpu().numpy())):
+            raise AssertionError(f"gain-copy pipeline frame {n} differs from direct stitch")
+    log(f"  {len(sets)} frame sets: both outputs bit-identical to stitch / stitch(gains=owner's), in order; "
+        f"owner's gains frame 0 {[round(g, 5) for g in m0.stitch(sets[0])[1].tolist()]}")
+
+    log("== 7d. small rig, ShardedMapper at make_mesh(2, 2), 5 frame sets (the last batch padded)")
+    sm = ShardedMapper(mt, sizes, make_mesh(2, 2, device="cuda"), blend=16)
+    sets = _small_sets(5, seed=71)
+    got, _ = _run_stream(AsyncMultiMapper([sm]), sets)
+    for b0 in range(0, len(sets), 2):
+        batch = sets[b0 : b0 + 2]
+        batch = batch + batch[-1:] * (2 - len(batch))
+        out, _ = sm.stitch_batch([torch.from_numpy(np.stack(x)).cuda() for x in zip(*batch)])
+        for b in range(min(2, len(sets) - b0)):
+            if not np.array_equal(got[b0 + b][0], sm.assemble_yuv(out[b]).cpu().numpy()):
+                raise AssertionError(f"sharded pipeline frame {b0 + b} differs from stitch_batch")
+    log(f"  {len(got)} frames out of {len(sets)} pushed, each equal to stitch_batch's; no padding frame")
+
+
+def phase_stream_sharded_4k(sm, host_sets):
+    """7d (4K): the pipeline over phase 6's band-sharded yuv420
+    ShardedMapper (make_mesh(1, 4), one frame set per batch), each output
+    bit-identical to stitch_batch called directly."""
+    from octvr_tpu_torch.ops import cuda_remap
+    from octvr_tpu_torch.runtime import AsyncMultiMapper
+
+    n = len(host_sets)
+    log(f"== 7d. AsyncMultiMapper over phase 6's 4K band-sharded Mapper, {n} host frame sets")
+    amm = AsyncMultiMapper([sm])
+    cuda_remap.reset_counts()
+    got, wall = _run_stream(amm, host_sets)
+    counts = dict(cuda_remap.COUNTS)
+    log(f"  {_stats_line(amm.stats(), n, wall)}; launches {counts}")
+    if counts != {"concat_nc1_bf16": n, "concat_nc2_bf16": n}:
+        raise AssertionError(f"expected {n} kernel-6 launches per plane, got {counts}")
+    for k, fs in enumerate(host_sets):
+        out, _ = sm.stitch_batch([torch.from_numpy(f[None]).cuda() for f in fs])
+        if not np.array_equal(got[k][0], sm.assemble_yuv(out[0]).cpu().numpy()):
+            raise AssertionError(f"sharded 4K pipeline frame {k} differs from stitch_batch")
+    log(f"  {n} frames bit-identical to stitch_batch, in order")
+    return {"fps": n / wall}
+
+
+def _cli(args, timeout=300):
+    """``python -m octvr_tpu_torch.cli.<args>`` from the root on the card
+    (no OCTVR_PLATFORM): a started process."""
+    env = {k: v for k, v in os.environ.items() if k != "OCTVR_PLATFORM"}
+    return subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def _finish(proc, label, timeout=300):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    tail = "\n".join(f"    | {line}" for line in err.strip().splitlines()[-6:])
+    log(f"  {label}: exit {proc.returncode}\n{tail}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{label} exited {proc.returncode}")
+    return err
+
+
+def phase_stream_cli(mt, sizes, mt4k):
+    """7e: ``python -m octvr_tpu_torch.cli.stream`` on the card, on the
+    small rig from raw files (against the port on the CPU, the Mapper
+    bars) and at 4K from the synthetic source; ``map`` on the card on
+    the small rig's PNGs, against the same steps by the port on the CPU
+    (the map CLI's RGB bars).  7f: ``monkey`` on the small rig's NV12
+    feeds to a raw file, each frame equal to FastMapper.stitch_nv12
+    called directly."""
+    import tempfile
+    import threading
+
+    from octvr_tpu_torch.ops.color import rgb_to_yuv420p, yuv420p_to_rgb
+    from octvr_tpu_torch.stitch import FastMapper, Mapper
+    from octvr_tpu_torch.template import save_npz
+    from octvr_tpu_torch.utils.png import read_png, write_png
+
+    log("== 7e-7f. the stream and monkey CLIs as processes on the card")
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as d:
+        tmpl, tmpl4k = os.path.join(d, "small.npz"), os.path.join(d, "4k.npz")
+        save_npz(mt, tmpl)
+        saver = threading.Thread(target=save_npz, args=(mt4k, tmpl4k))  # zlib runs without the GIL
+        saver.start()
+        sets = _small_sets(6, seed=72)
+        feeds, nv12 = [], []
+        for cam in range(2):
+            feeds.append(os.path.join(d, f"cam{cam}.yuv"))
+            nv12.append(os.path.join(d, f"cam{cam}.nv12"))
+            with open(feeds[-1], "wb") as fy, open(nv12[-1], "wb") as fn:
+                for fs in sets:
+                    fy.write(fs[cam].tobytes())
+                    fn.write(_nv12(fs[cam]).tobytes())
+        pngs = [os.path.join(d, f"cam{cam}.png") for cam in range(2)]
+        for p, f in zip(pngs, sets[0]):
+            write_png(p, np.clip(yuv420p_to_rgb(torch.from_numpy(f)).numpy(), 0, 255).astype(np.uint8))
+        size = f"{SMALL_CAM}x{SMALL_CAM}"
+        out, out_nv12, out_png = (os.path.join(d, n) for n in ("out.yuv", "out.nv12", "map.png"))
+        p_stream = _cli(["octvr_tpu_torch.cli.stream", "--inputs", ",".join(feeds), "--in_size", size,
+                         "--outputs", f"{tmpl}:16:0", "--out", out, "--pipeline", "yuv420",
+                         "--blend_dtype", "float32"])
+        p_monkey = _cli(["octvr_tpu_torch.cli.monkey", "-t", tmpl, "--inputs", ",".join(nv12),
+                         "--in_size", size, "--out", out_nv12])
+        # feather blend: f32 on both devices (the card's multiband
+        # default is bf16, the CPU's f32), so the CPU port is like for like
+        p_map = _cli(["octvr_tpu_torch.cli.map", "-t", tmpl, "-o", out_png, "--blend", "-8", "--gain", *pngs])
+        _finish(p_stream, "stream, small rig from raw files")
+        _finish(p_monkey, "monkey, small rig NV12 feeds")
+        err_map = _finish(p_map, "map, small rig PNGs")
+
+        m_cpu = Mapper(mt, sizes, blend=16, pipeline="yuv420", blend_dtype="float32", device="cpu")
+        got = np.fromfile(out, np.uint8).reshape(-1, 384, 512)
+        if len(got) != len(sets):
+            raise AssertionError(f"stream CLI wrote {len(got)} frames of {len(sets)}")
+        for n, fs in enumerate(sets):
+            ref = m_cpu.stitch(fs)[0].numpy().astype(np.float32)
+            d_y = np.abs(got[n][:256].astype(np.float32) - ref[:256])
+            d_uv = np.abs(got[n][256:].astype(np.float32) - ref[256:])
+            log(f"  stream frame {n} vs the port on the CPU: Y mean {d_y.mean():.4f} max {d_y.max():.0f}, "
+                f"UV mean {d_uv.mean():.4f} max {d_uv.max():.0f} (bars: means < 0.2, maxima <= 2)")
+            if not (d_y.mean() < 0.2 and d_uv.mean() < 0.2 and d_y.max() <= 2 and d_uv.max() <= 2):
+                raise AssertionError("stream CLI on the card disagrees with the port on the CPU")
+
+        imgs = [read_png(p) for p in pngs]
+        m_map = Mapper(mt, sizes, blend=-8, enable_gain=True, pipeline="yuv420", device="cpu")
+        o, g_cpu = m_map.stitch([rgb_to_yuv420p(torch.from_numpy(i.astype(np.float32))) for i in imgs])
+        ref = np.clip(yuv420p_to_rgb(o).numpy(), 0, 255).astype(np.uint8)
+        d_rgb = np.abs(read_png(out_png).astype(np.float32) - ref)
+        line = [s for s in err_map.splitlines() if s.startswith("gains:")][0]
+        g_card = np.array(line.split("[")[1].split("]")[0].split(), np.float32)
+        g_err = float(np.abs(g_card - g_cpu.numpy()).max())
+        ch_mean = d_rgb.reshape(-1, 3).mean(0).max()
+        log(f"  map PNG vs the port on the CPU: worst channel mean {ch_mean:.4f} (bar < 0.2), max "
+            f"{d_rgb.max():.0f} (bar <= 6); gains {g_card.tolist()}, max err {g_err:.3g} (bar < 1e-3)")
+        if not (ch_mean < 0.2 and d_rgb.max() <= 6 and g_err < 1e-3):
+            raise AssertionError("map CLI on the card disagrees with the port on the CPU")
+        fm = FastMapper(mt, sizes, device="cuda")
+        got = np.fromfile(out_nv12, np.uint8).reshape(-1, 384, 512)
+        if len(got) != len(sets):
+            raise AssertionError(f"monkey CLI wrote {len(got)} frames of {len(sets)}")
+        for n, fs in enumerate(sets):
+            if not np.array_equal(got[n], fm.stitch_nv12([_nv12(f) for f in fs]).cpu().numpy()):
+                raise AssertionError(f"monkey frame {n} differs from FastMapper.stitch_nv12")
+        log(f"  monkey: {len(got)} NV12 frames equal to FastMapper.stitch_nv12, bit for bit")
+
+        saver.join()
+        out4k = os.path.join(d, "4k.yuv")
+        p = _cli(["octvr_tpu_torch.cli.stream", "--in_size", f"{CAM}x{CAM}", "--outputs", f"{tmpl4k}:128",
+                  "--out", out4k, "--source", "synthetic", "--frames", str(STREAM_FRAMES), "--timers"])
+        err = _finish(p, f"stream, 4K synthetic source, {STREAM_FRAMES} frames, --timers")
+        done = [line for line in err.splitlines() if line.startswith("# done")]
+        timers = [line for line in err.splitlines() if line.startswith("[Timer stitch]")]
+        n_bytes = os.path.getsize(out4k)
+        if not done or "fps" not in done[-1] or len(timers) != 3 * (STREAM_FRAMES // 10):
+            raise AssertionError("the 4K stream CLI printed no '# done' fps or not every stage timer")
+        if n_bytes != STREAM_FRAMES * CANVAS_H * 3 // 2 * CANVAS_W:
+            raise AssertionError(f"the 4K stream CLI wrote {n_bytes} bytes")
+        log(f"  4K CLI: {done[-1]}; last timers {timers[-3:]}")
+    log(f"  phase 7e-7f took {time.time() - t0:.1f} s")
+    return done[-1]
 
 
 _KERNEL_CLASSES = (
@@ -1715,15 +2108,37 @@ def main(argv):
     phase_sharded_small_options()
     main_path = phase_main_path(mt, t_template, frame_sets)
     rgb = phase_rgb_path(mt, frame_sets)
-    batch = phase_stitch_batch(main_path["mapper"], frame_sets, main_path["ms_frame"])
-    del main_path["mapper"]
+    mapper = main_path.pop("mapper")
+    batch = phase_stitch_batch(mapper, frame_sets, main_path["ms_frame"])
     sharded = phase_sharded(host, t_host, frame_sets, main_path)
+    sharded_sm = sharded.pop("sm")
     del host
     sharded_rgb = phase_sharded_rgb(host_rgb, t_host_rgb, frame_sets, rgb)
+    t7 = time.time()
+    stream = phase_stream_4k(mapper, frame_sets, main_path)
+    del mapper
+    small_mt, small_sizes = _small_stream_rig()
+    phase_stream_small(small_mt, small_sizes)
+    stream["7d"] = phase_stream_sharded_4k(
+        sharded_sm, [[f.cpu().numpy() for f in fs] for fs in frame_sets[:SHARD_ITERS]]
+    )
+    del sharded_sm
+    stream["7e"] = phase_stream_cli(small_mt, small_sizes, mt)
+    log(f"  phase 7 took {time.time() - t7:.1f} s")
 
     log("== summary")
     log(f"total run time {time.time() - t_start:.1f} s")
     log(f"card: {smi}")
+    a, b = stream["7a"], stream["7b"]
+    log(f"stream pipeline (7a, host frames in and out): {a['fps']:.2f} frames/s, stages upload "
+        f"{a['upload_ms']:.3f} / dispatch {a['dispatch_ms']:.3f} / drain {a['drain_ms']:.3f} ms/frame, H2D "
+        f"{a['h2d_GBps']:.2f} GB/s, D2H {a['d2h_GBps']:.2f} GB/s; checksum drain (7b) "
+        f"{b['host frames']['fps']:.2f} frames/s from host frames, {b['device frames']['fps']:.2f} from "
+        f"device frames; band-sharded (7d) {stream['7d']['fps']:.2f} frames/s; phase 5 Mapper.stitch "
+        f"{main_path['ms_frame']:.3f} ms/frame ({1e3 / main_path['ms_frame']:.2f} frames/s)")
+    log("stream dispatch host ms/frame, medians of 7b's rounds: "
+        + "; ".join(f"{k} {v:.3f}" for k, v in b["rounds"].items()))
+    log(f"4K stream CLI (7e): {stream['7e']}")
     log("4K remap launches: device ms (share of bound); call ms; grid_sample device ms")
     for key, t in times.items():
         log(f"  {key:22s} {t['ms']:.5f} ({t['bound_ms'] / t['ms']:.3f}); call {t['call_ms']:.5f}; "

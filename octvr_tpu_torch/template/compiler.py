@@ -169,6 +169,36 @@ class MapperTemplate:
         return self.seam_masks
 
 
+def _remap_image_cpu(img: np.ndarray, map1: np.ndarray, map2: np.ndarray):
+    """Bilinear gather of ``img`` at normalized map coordinates (CPU/NumPy,
+    offline use: seam-finding sources, golden references)."""
+    h, w = img.shape[:2]
+    px = map1.astype(np.float64) * w - 0.5
+    py = map2.astype(np.float64) * h - 0.5
+    invalid = (map1 < 0) | (map2 < 0)
+    x0 = np.clip(np.floor(px).astype(np.int64), 0, w - 1)
+    y0 = np.clip(np.floor(py).astype(np.int64), 0, h - 1)
+    x1 = np.clip(x0 + 1, 0, w - 1)
+    y1 = np.clip(y0 + 1, 0, h - 1)
+    fx = np.clip(px - np.floor(px), 0.0, 1.0)[..., None]
+    fy = np.clip(py - np.floor(py), 0.0, 1.0)[..., None]
+    im = img.astype(np.float64)
+    if im.ndim == 2:
+        im = im[..., None]
+    out = (
+        im[y0, x0] * (1 - fx) * (1 - fy)
+        + im[y0, x1] * fx * (1 - fy)
+        + im[y1, x0] * (1 - fx) * fy
+        + im[y1, x1] * fx * fy
+    )
+    out[invalid] = 0
+    if img.ndim == 2:
+        out = out[..., 0]
+    if np.issubdtype(img.dtype, np.integer):
+        out = np.clip(np.round(out), 0, 255).astype(img.dtype)
+    return out
+
+
 def compile_rig(rig: dict, width: int, height: int = 0) -> MapperTemplate:
     """rig JSON (reference schema, modules/octvr/readme.md:32-81) ->
     compiled template.  ``rig`` = {"output": {...}, "inputs": [...],

@@ -443,3 +443,136 @@ def test_fan_wrapper_raises_on_misaligned_inputs(cuda_device):
     with pytest.raises(ValueError, match="16-byte aligned"):
         mxu_taps.fan(shifted, fxy, win, 16, 64)
     assert mxu_taps.LAUNCHES == 0
+
+
+def _pipeline_sets(n, seed):
+    """n distinct frame sets for the 256^2 two-fisheye rig."""
+    rng = np.random.default_rng(seed)
+    return [[rng.integers(0, 256, (384, 256), dtype=np.uint8) for _ in range(2)] for _ in range(n)]
+
+
+def _drain_all(amm, sets, pop_delay=0.0):
+    """Pushes every set and the end of the stream from a thread while
+    popping here (sleeping ``pop_delay`` s before each pop)."""
+    import threading
+    import time
+
+    def push_all():
+        for s in sets:
+            amm.push(s)
+        amm.close_input()
+
+    pusher = threading.Thread(target=push_all)
+    got = []
+    try:
+        pusher.start()
+        for _ in sets:
+            time.sleep(pop_delay)
+            got.append(amm.pop())
+        pusher.join(timeout=60)
+        assert not pusher.is_alive()
+        with pytest.raises(StopIteration):
+            amm.pop()
+    finally:
+        amm.close()
+    return got
+
+
+@pytest.mark.parametrize("pop_delay", [0.0, 0.05], ids=["paced", "slow_drain"])
+def test_pipeline_ring_reuse_on_card(cuda_device, pop_delay):
+    """More frame sets than BUF_SIZE, each distinct, through the rings of
+    pinned and device slots: every output bit-identical to a direct
+    stitch of its own set, in order.  With a slow drain the pusher runs
+    ahead until the rings are full, so a pinned slot rewritten before its
+    copy completed, or a device slot before its stitch did, would show as
+    a wrong frame.  The caller's arrays are never written."""
+    from octvr_tpu_torch.runtime import BUF_SIZE, AsyncMultiMapper
+
+    mt, sizes, _ = _small_rig(cuda_device)
+    m = Mapper(mt, sizes, blend=16, device=cuda_device)
+    sets = _pipeline_sets(3 * BUF_SIZE + 1, seed=40)
+    kept = [[f.copy() for f in s] for s in sets]
+    amm = AsyncMultiMapper([m])
+    got = _drain_all(amm, sets, pop_delay)
+    for outs, s, k in zip(got, sets, kept):
+        assert all(np.array_equal(f, g) for f, g in zip(s, k))
+        assert np.array_equal(outs[0], m.stitch(s)[0].cpu().numpy())
+    st = amm.stats()
+    assert st["frames"] == len(sets) and st["h2d_bytes"] == len(sets) * 2 * 384 * 256
+    assert st["h2d_GBps"] > 0 and st["d2h_bytes"] == len(sets) * 192 * 256
+
+
+def test_pipeline_device_frames_and_gain_copy_on_card(cuda_device):
+    """Frame sets pushed as tensors on the card skip the rings and are
+    left unwritten; a gain copier (gain_modes [0, 0]) equals a direct
+    stitch with its owner's gains, bit for bit; checksums in checksum
+    mode equal the host outputs' on every 8th frame."""
+    from octvr_tpu_torch.runtime import AsyncMultiMapper
+
+    mt, sizes, _ = _small_rig(cuda_device)
+    m0 = Mapper(mt, sizes, blend=16, device=cuda_device)
+    m1 = Mapper(mt, sizes, blend=-8, device=cuda_device)
+    sets = [[torch.from_numpy(f).to(cuda_device) for f in s] for s in _pipeline_sets(8, seed=41)]
+    kept = [[f.clone() for f in s] for s in sets]
+    amm = AsyncMultiMapper([m0, m1], gain_modes=[0, 0])
+    got = _drain_all(amm, sets)
+    assert amm.stats()["h2d_bytes"] == 0
+    chk = _drain_all(AsyncMultiMapper([m0], drain="checksum"), sets)
+    for n, (outs, s, k) in enumerate(zip(got, sets, kept)):
+        assert all(torch.equal(f, g) for f, g in zip(s, k))
+        o0, g0 = m0.stitch(s)
+        o1, _ = m1.stitch(s, gains=g0)
+        assert np.array_equal(outs[0], o0.cpu().numpy()) and np.array_equal(outs[1], o1.cpu().numpy())
+        want = int(o0[::101, ::103].to(torch.int64).sum()) if n % 8 == 7 else 0.0
+        assert chk[n] == [want]
+
+
+def test_pipeline_sharded_on_card(cuda_device):
+    """ShardedMapper outputs at make_mesh(2, 2): an odd number of frame
+    sets, so the last batch is padded; every real frame comes out, in
+    order, equal to stitch_batch called directly, and no padding frame."""
+    from octvr_tpu_torch.runtime import AsyncMultiMapper
+
+    mt, sizes, _ = _small_rig(cuda_device)
+    sm = ShardedMapper(mt, sizes, make_mesh(2, 2, device=cuda_device), blend=16)
+    sets = _pipeline_sets(5, seed=42)
+    got = _drain_all(AsyncMultiMapper([sm]), sets)
+    assert len(got) == 5
+    for b0 in range(0, 5, 2):
+        batch = sets[b0 : b0 + 2]
+        batch = batch + batch[-1:] * (2 - len(batch))
+        out, _ = sm.stitch_batch([torch.from_numpy(np.stack(x)).to(cuda_device) for x in zip(*batch)])
+        for b in range(min(2, 5 - b0)):
+            assert np.array_equal(got[b0 + b][0], sm.assemble_yuv(out[b]).cpu().numpy())
+
+
+def test_map_cli_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch, capfd):
+    """``map`` without OCTVR_PLATFORM runs on the card, its colour
+    conversions there too: the PNG within the map CLI's RGB bars
+    (tests/test_torch_cli.py: per channel mean < 0.2, max <= 6) of the
+    same steps by the port on the CPU, gains within 1e-3.  Feather
+    blend: f32 on both devices (the card's multiband default is bf16)."""
+    from octvr_tpu_torch.cli import map as tmap
+    from octvr_tpu_torch.ops.color import rgb_to_yuv420p, yuv420p_to_rgb
+    from octvr_tpu_torch.template import save_npz
+    from octvr_tpu_torch.utils.png import read_png, write_png
+
+    monkeypatch.delenv("OCTVR_PLATFORM", raising=False)
+    mt, sizes, frames = _small_rig(cuda_device)
+    save_npz(mt, str(tmp_path / "t.npz"))
+    imgs = [np.clip(yuv420p_to_rgb(torch.from_numpy(f)).numpy(), 0, 255).astype(np.uint8) for f in frames]
+    pngs = [str(tmp_path / f"cam{k}.png") for k in range(2)]
+    for p, img in zip(pngs, imgs):
+        write_png(p, img)
+    before = cuda_remap.LAUNCHES
+    tmap.main(["-t", str(tmp_path / "t.npz"), "-o", str(tmp_path / "out.png"), "--blend", "-8", "--gain", *pngs])
+    assert cuda_remap.LAUNCHES > before
+    line = [s for s in capfd.readouterr().err.splitlines() if s.startswith("gains:")][0]
+    g_card = np.array(line.split("[")[1].split("]")[0].split(), np.float32)
+
+    m = Mapper(mt, sizes, blend=-8, enable_gain=True, pipeline="yuv420", device="cpu")
+    out, g_cpu = m.stitch([rgb_to_yuv420p(torch.from_numpy(i.astype(np.float32))) for i in imgs])
+    ref = np.clip(yuv420p_to_rgb(out).numpy(), 0, 255).astype(np.uint8)
+    d = np.abs(read_png(str(tmp_path / "out.png")).astype(np.float32) - ref)
+    assert d.shape == ref.shape and d.reshape(-1, 3).mean(0).max() < 0.2 and d.max() <= 6
+    assert np.abs(g_card - g_cpu.numpy()).max() < 1e-3

@@ -216,7 +216,9 @@ def test_to_device_bf16_matches_ml_dtypes():
 def test_port_imports_no_jax():
     code = (
         "import sys, octvr_tpu_torch.stitch, octvr_tpu_torch.stitch.convert, "
-        "octvr_tpu_torch.ops.cuda_remap; "
+        "octvr_tpu_torch.ops.cuda_remap, octvr_tpu_torch.runtime, octvr_tpu_torch.presets, "
+        "octvr_tpu_torch.cli.stream, octvr_tpu_torch.cli.map, octvr_tpu_torch.cli.monkey, "
+        "octvr_tpu_torch.cli.monkey_gen; "
         "assert 'jax' not in sys.modules and 'ml_dtypes' not in sys.modules"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)

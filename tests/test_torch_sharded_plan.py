@@ -218,15 +218,23 @@ def test_cuda_without_card_raises():
         make_mesh(1, 4, device="cuda")
 
 
-def test_entry_points_default_to_the_card(rigs):
+def test_entry_points_default_to_the_card(rigs, monkeypatch):
     """Mapper, FastMapper and make_mesh run on the card unless asked for
-    the CPU, and ShardedMapper takes the mesh's device; without a card
-    the default raises, with no fallback to the CPU."""
+    the CPU, and ShardedMapper takes the mesh's device; so do the CLIs
+    without OCTVR_PLATFORM, and an AsyncMultiMapper over CUDA mappers.
+    Without a card the default raises, with no fallback to the CPU."""
+    from types import SimpleNamespace
+
+    from octvr_tpu_torch.cli import apply_platform_env, monkey, stream
+    from octvr_tpu_torch.runtime import AsyncMultiMapper
+
+    monkeypatch.delenv("OCTVR_PLATFORM", raising=False)
     mt, sizes, _ = rigs["fisheye"]
     makers = (
         lambda: Mapper(mt, sizes, blend=16),
         lambda: FastMapper(mt, sizes),
         lambda: make_mesh(1, 2),
+        lambda: SimpleNamespace(device=apply_platform_env()),
     )
     for make in makers:
         if torch.cuda.is_available():
@@ -234,6 +242,20 @@ def test_entry_points_default_to_the_card(rigs):
         else:
             with pytest.raises(RuntimeError, match="is_available"):
                 make()
+    if not torch.cuda.is_available():
+        clis = (
+            lambda: stream.main(["--in_size", "8x8", "--outputs", "t.npz", "--out", "o.yuv"]),
+            lambda: monkey.main(["-t", "t.npz", "--inputs", "a,b", "--in_size", "8x8"]),
+            lambda: AsyncMultiMapper([SimpleNamespace(device=torch.device("cuda"))]),
+        )
+        for run in clis:
+            with pytest.raises(RuntimeError, match="is_available"):
+                run()
+    monkeypatch.setenv("OCTVR_PLATFORM", "cpu")
+    assert apply_platform_env().type == "cpu"
+    monkeypatch.setenv("OCTVR_PLATFORM", "tpu")
+    with pytest.raises(ValueError, match="OCTVR_PLATFORM"):
+        apply_platform_env()
     sm = ShardedMapper(mt, sizes, make_mesh(1, 2, device="cpu"), blend=16)
     assert sm.device.type == "cpu" and sm.plan.weight_pyrs[0][0].device.type == "cpu"
 
@@ -264,6 +286,9 @@ def test_port_imports_no_jax():
         for f in files if f.name != "chip_smoke.py"
     ]
     assert len(mods) > 20 and "octvr_tpu_torch.template.compiler" in mods
+    assert {"octvr_tpu_torch.runtime", "octvr_tpu_torch.runtime.pipeline", "octvr_tpu_torch.presets",
+            "octvr_tpu_torch.cli.stream", "octvr_tpu_torch.cli.map", "octvr_tpu_torch.cli.monkey",
+            "octvr_tpu_torch.cli.monkey_gen"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
