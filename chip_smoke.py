@@ -130,6 +130,27 @@ Phases, each failing the run on any error:
      f. ``python -m octvr_tpu_torch.cli.register`` as a process on the
         card and with OCTVR_PLATFORM=cpu on PNGs of the tests' 5-camera
         ring: the same images, fx within 0.5%, rotations within 5e-3.
+  9. the offline stage and the operator CLIs on the card, at the main
+     path's full width (phase 5's rig, 6 x 1920^2 -> 3840x1920):
+     a. ``python -m octvr_tpu_torch.cli.dump``, five processes at once:
+        without images (the distance seam) and with six 1920^2 PNGs from
+        seed 0 for each of graphcut, graphcut_grad, dp and dp_grad; each
+        .dat loads and its seam masks partition the canvas (covered >
+        0.98, overlap < 0.02); the distance .dat equals phase 5's
+        in-process compile_rig + create_masks() byte for byte;
+     b. ``python -m octvr_tpu_torch.cli.live`` on six raw feeds of 8
+        frames (phase 5's frame sets), blend 128: exit 0, "stream
+        finished cleanly", the template equal to phase 5's, every frame
+        within the 7e bars of the port's Mapper on the card built with
+        the stream CLI's options from that template, the stream child's
+        remap launches and each stage's wall time; then live with and
+        without --encrypt_args on the small rig: the same output bytes;
+     c. ``python -m octvr_tpu_torch.cli.gain_and_remap`` on the card and
+        with OCTVR_PLATFORM=cpu on phase 5's template, the six reverse
+        (rmap) templates and the six PNGs (an exposure spread): the
+        .gain.png files within 1 LSB, at least 99.9% of values equal;
+     d. Stitcher(conf_thresh=0.5, seam="graphcut").stitch of 8c's images
+        to 3840x1920 at 8e's bars, its seconds beside 8e's.
 Kernel times (``ms``, ``library_ms``) are device times
 (``device_ms``): K back-to-back calls captured in one CUDA graph, K
 enough for ~2 ms of work, replayed in 5 CUDA-event windows; the median
@@ -151,6 +172,7 @@ card, to compare their kernels (an earlier commit's, or an edited copy
 of a source).
 """
 
+import ast
 import importlib.util
 import json
 import math
@@ -1024,21 +1046,28 @@ def phase_sharded_small_options():
             raise AssertionError(f"sharded option {label}: CUDA vs CPU parity failed")
 
 
+def _scene_rgb(rng, size, gain):
+    """[size, size, 3] f64 RGB in [0, 255]: a smooth in-gamut scene scaled
+    by its exposure gain, with noise (bench.py's default-path fixture)."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    rgb = np.stack(
+        [
+            127 + 90 * np.sin(6.3 * xx + 2 * yy + rng.uniform(0, 6)),
+            127 + 90 * np.cos(4.1 * yy - 3 * xx + rng.uniform(0, 6)),
+            127 + 90 * np.sin(2.7 * (xx + yy) + rng.uniform(0, 6)),
+        ],
+        axis=-1,
+    ) * gain + rng.normal(0.0, 6.0, (size, size, 3))
+    return np.clip(rgb, 0, 255)
+
+
 def _in_gamut_frames(rng, n, size, gains):
     """Packed YUV420P frames of smooth in-gamut RGB scenes (bench.py's
     default-path fixture), each scaled by its exposure gain."""
     frames = []
     for k in range(n):
-        yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
-        rgb = np.stack(
-            [
-                127 + 90 * np.sin(6.3 * xx + 2 * yy + rng.uniform(0, 6)),
-                127 + 90 * np.cos(4.1 * yy - 3 * xx + rng.uniform(0, 6)),
-                127 + 90 * np.sin(2.7 * (xx + yy) + rng.uniform(0, 6)),
-            ],
-            axis=-1,
-        ) * gains[k] + rng.normal(0.0, 6.0, (size, size, 3))
-        r, g, b = (np.clip(rgb, 0, 255)[..., c] for c in range(3))
+        rgb = _scene_rgb(rng, size, gains[k])
+        r, g, b = (rgb[..., c] for c in range(3))
         y = 0.299 * r + 0.587 * g + 0.114 * b
         u = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
         v = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
@@ -1924,11 +1953,17 @@ def phase_stream_sharded_4k(sm, host_sets):
     return {"fps": n / wall}
 
 
+def _card_env(**extra):
+    """The environment of a CLI process on the card (no OCTVR_PLATFORM),
+    plus ``extra``."""
+    env = {k: v for k, v in os.environ.items() if k != "OCTVR_PLATFORM"}
+    return {**env, **extra}
+
+
 def _cli(args, timeout=300):
     """``python -m octvr_tpu_torch.cli.<args>`` from the root on the card
     (no OCTVR_PLATFORM): a started process."""
-    env = {k: v for k, v in os.environ.items() if k != "OCTVR_PLATFORM"}
-    return subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, env=env, text=True,
+    return subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, env=_card_env(), text=True,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
 
 
@@ -2288,17 +2323,19 @@ def _world_error(pano, covered, step=8):
     )
 
 
-def phase_stitcher(images, smi):
-    """8e: Stitcher(conf_thresh=0.5).stitch of 8c's images to 3840x1920
-    on the card: the remap kernels launched, the covered share, the error
-    against the rendered world at the best yaw shift."""
+def phase_stitcher(images, smi, seam="distance", label="8e"):
+    """8e (9d with ``seam="graphcut"``): Stitcher(conf_thresh=0.5,
+    seam=seam).stitch of 8c's images to 3840x1920 on the card: the remap
+    kernels launched, the covered share, the error against the rendered
+    world at the best yaw shift.  Returns the StitchResult."""
     from octvr_tpu_torch.ops import cuda_remap
     from octvr_tpu_torch.stitcher_facade import Stitcher
 
-    log(f"== 8e. Stitcher(conf_thresh=0.5).stitch of 8c's images to {CANVAS_W}x{CANVAS_H} on the card")
+    log(f"== {label}. Stitcher(conf_thresh=0.5, seam={seam!r}).stitch of 8c's images to {CANVAS_W}x{CANVAS_H} "
+        "on the card")
     cuda_remap.reset_counts()
     t0 = time.perf_counter()
-    res = Stitcher(conf_thresh=0.5).stitch(images, out_width=CANVAS_W)
+    res = Stitcher(conf_thresh=0.5, seam=seam).stitch(images, out_width=CANVAS_W)
     t_stitch = time.perf_counter() - t0
     counts = dict(cuda_remap.COUNTS)
     if cuda_remap.LAUNCHES == 0:
@@ -2317,6 +2354,7 @@ def phase_stitcher(images, smi):
         raise AssertionError(f"panorama {res.panorama.shape}, kept {res.indices}")
     if not (0.2 < covered.mean() < 0.4 and err < 20.0):
         raise AssertionError(f"covered {covered.mean()}, world error {err}")
+    return res
 
 
 def phase_register_cli(smi):
@@ -2361,18 +2399,311 @@ def phase_register_cli(smi):
 
 
 def phase_registration(smi):
-    """Phase 8, the registration path on the card (8a-8f)."""
+    """Phase 8, the registration path on the card (8a-8f).  Returns its
+    time, 8c's stage times, the ring's images and 8e's StitchResult."""
     t0 = time.time()
     images = _render_ring(REG_N, REG_STEP, REG_F, REG_W, REG_H)
     log(f"== 8. registration: rendered {REG_N} x {REG_W}x{REG_H} views in {time.time() - t0:.1f} s")
     phase_match(phase_features(images, smi), smi)
     res = phase_register(images, smi)
     phase_bundle(res, smi)
-    phase_stitcher(images, smi)
+    stitched = phase_stitcher(images, smi)
     phase_register_cli(smi)
     took = time.time() - t0
     log(f"  phase 8 took {took:.1f} s")
-    return {"seconds": took, "times": res.times}
+    return {"seconds": took, "times": res.times, "images": images, "stitched": stitched}
+
+
+# ---------------------------------------------------------------- phase 9
+
+SEAM_KINDS = ("graphcut", "graphcut_grad", "dp", "dp_grad")  # 9a: dump with images
+EXPOSURES = (1.0, 0.8, 1.2, 0.9, 1.1, 0.85)  # 9a/9c: the six PNGs' exposure spread
+LIVE_FRAMES = 8  # 9b
+ARG_KEY = "0f" * 32  # 9b: the --encrypt_args key (hex)
+
+
+def _timed_cli(args, env, timeout=600):
+    """``python -m <args>`` from the root: (exit code, [(seconds since the
+    start, stderr line), ...], seconds).  Lines are read as they come, so
+    their times split the run into its stages."""
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    killer = threading.Timer(timeout, proc.kill)
+    killer.start()
+    lines = []
+    try:
+        for line in proc.stderr:
+            lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+        proc.wait()
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, lines, time.perf_counter() - t0
+
+
+def _run_together(jobs, label):
+    """Runs {name: (args, env)} as processes at once (``_timed_cli``);
+    fails unless each exits 0.  Returns {name: (lines, seconds)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        runs = dict(zip(jobs, pool.map(lambda job: _timed_cli(*job), jobs.values())))
+    for name, (rc, lines, took) in runs.items():
+        tail = "\n".join(f"    | {text}" for _, text in lines[-4:])
+        log(f"  {label} {name}: exit {rc} after {took:.2f} s\n{tail}")
+        if rc != 0:
+            raise AssertionError(f"{label} {name} exited {rc}")
+    return {name: (lines, took) for name, (rc, lines, took) in runs.items()}
+
+
+def _dat_bytes(mt):
+    import io
+
+    from octvr_tpu_torch.template import dump_dat
+
+    buf = io.BytesIO()
+    dump_dat(mt, buf)
+    return buf.getvalue()
+
+
+def _partition(mt):
+    """(covered, overlap) shares of the canvas under mt's seam masks
+    (tests/test_template.py:68-78: > 0.98 and < 0.02)."""
+    w, h = mt.out_size
+    count = np.zeros((h, w), np.uint8)
+    for inp, sm in zip(mt.inputs, mt.seam_masks):
+        x, y, rw, rh = inp.roi
+        count[y : y + rh, x : x + rw] += sm > 128
+    return float((count >= 1).mean()), float((count > 1).mean())
+
+
+def phase_dump_cli(want, d, smi):
+    """9a: ``python -m octvr_tpu_torch.cli.dump`` at 4K on the six-camera
+    rig, five processes at once: without images ("distance") and with the
+    six PNGs for each image-driven seam kind.  Each .dat loads and its seam
+    masks partition the canvas; the "distance" one equals phase 5's
+    in-process compile_rig + create_masks() (``want``, its .dat bytes) byte
+    for byte.  Returns the rig's path, the PNGs and each run's seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from octvr_tpu_torch.template import load_dat
+    from octvr_tpu_torch.utils.png import write_png
+
+    log(f"== 9a. the dump CLI at {CANVAS_W}x{CANVAS_H} on the card's host: 6 x {CAM}^2 PNGs from seed 0 "
+        f"(exposures {list(EXPOSURES)}), seams distance and {', '.join(SEAM_KINDS)}")
+    t0 = time.perf_counter()
+    rig = os.path.join(d, "rig.json")
+    with open(rig, "w") as f:
+        json.dump(six_cam_rig(), f)
+    rng = np.random.default_rng(0)
+    scenes = [_scene_rgb(rng, CAM, g).astype(np.uint8) for g in EXPOSURES]
+    pngs = [os.path.join(d, f"cam{k}.png") for k in range(len(scenes))]
+    with ThreadPoolExecutor(len(pngs)) as pool:  # zlib runs without the GIL
+        list(pool.map(write_png, pngs, scenes))
+    log(f"  PNGs written in {time.perf_counter() - t0:.2f} s")
+    size = ["-w", str(CANVAS_W), "-h", str(CANVAS_H)]
+    jobs = {"distance": (["octvr_tpu_torch.cli.dump", *size, "-o", os.path.join(d, "distance.dat"), rig],
+                         _card_env())}
+    for kind in SEAM_KINDS:
+        jobs[kind] = (["octvr_tpu_torch.cli.dump", *size, "--seam", kind, "-o", os.path.join(d, f"{kind}.dat"),
+                       rig, *pngs], _card_env())
+    runs = _run_together(jobs, "dump")
+    for name in jobs:
+        path = os.path.join(d, f"{name}.dat")
+        with open(path, "rb") as f:
+            got = load_dat(f)
+        covered, overlap = _partition(got)
+        log(f"  {name}: {os.path.getsize(path) / 2**20:.1f} MiB, loads; seam masks cover {covered:.5f} "
+            f"(bar > 0.98), overlap {overlap:.5f} (bar < 0.02); {runs[name][1]:.2f} s")
+        if not (covered > 0.98 and overlap < 0.02) or len(got.inputs) != 6:
+            raise AssertionError(f"dump --seam {name}: {len(got.inputs)} inputs, covered {covered}, overlap {overlap}")
+    with open(os.path.join(d, "distance.dat"), "rb") as f:
+        if f.read() != want:
+            raise AssertionError("dump's distance .dat differs from phase 5's compile_rig + create_masks()")
+    log(f"  the distance .dat equals phase 5's template byte for byte ({len(want)} bytes); "
+        f"9a took {time.perf_counter() - t0:.1f} s ({smi})")
+    return rig, pngs, {name: took for name, (_, took) in runs.items()}
+
+
+def _stage_times(lines):
+    """live's stages from its stderr times: the dump child (up to the
+    first "# starting stream") and the stream child (to "# stream
+    finished cleanly")."""
+    t_start = next(t for t, text in lines if text.startswith("# starting stream"))
+    t_end = next(t for t, text in lines if "stream finished cleanly" in text)
+    return {"dump": t_start, "stream": t_end - t_start}
+
+
+def phase_live_cli(want, frame_sets, rig, d, smi):
+    """9b: ``python -m octvr_tpu_torch.cli.live`` on the card at 4K: six
+    raw files of LIVE_FRAMES frames (phase 5's first frame sets), blend
+    128.  Its template equals phase 5's, and every output frame is within
+    the 7e bars of the port's Mapper on the card built with the stream
+    CLI's options from that template.  Then live plain and with
+    --encrypt_args on the small rig: the same output bytes."""
+    from octvr_tpu_torch.stitch import Mapper
+    from octvr_tpu_torch.template import load_npz
+    from rigs import two_fisheye_rig
+
+    log(f"== 9b. the live CLI on the card: 6 x {CAM}^2 raw feeds of {LIVE_FRAMES} frames -> "
+        f"{CANVAS_W}x{CANVAS_H}, blend 128")
+    t0 = time.perf_counter()
+    feeds = [os.path.join(d, f"cam{k}.yuv") for k in range(6)]
+    for k, path in enumerate(feeds):
+        with open(path, "wb") as f:
+            for fs in frame_sets[:LIVE_FRAMES]:
+                f.write(fs[k].cpu().numpy().tobytes())
+    out, work = os.path.join(d, "live.yuv"), os.path.join(d, "live")
+    args = ["octvr_tpu_torch.cli.live", "--rig", rig, "--inputs", ",".join(feeds), "--in_size", f"{CAM}x{CAM}",
+            "--out_size", f"{CANVAS_W}x{CANVAS_H}", "--out", out, "--blend", "128", "--frames", str(LIVE_FRAMES),
+            "--workdir", work]
+    rc, lines, took = _timed_cli(args, _card_env())
+    err = "\n".join(text for _, text in lines)
+    log("\n".join(f"    | {text}" for _, text in lines if text.startswith(("#", "[Timer", "warning"))))
+    if rc != 0 or "stream finished cleanly" not in err:
+        raise AssertionError(f"live exited {rc}:\n{err[-3000:]}")
+    stages = _stage_times(lines)
+    done = [text for _, text in lines if text.startswith("# done")]
+    launches = [text for _, text in lines if text.startswith("# remap launches")]
+    counts = ast.literal_eval(launches[-1].split(" ", 4)[-1]) if launches else {}
+    log(f"  live {took:.2f} s: dump child {stages['dump']:.2f} s, stream child {stages['stream']:.2f} s; "
+        f"{done[-1] if done else 'no # done line'}; stream child's remap launches {counts} ({smi})")
+    if counts.get("nc1_bf16", 0) < LIVE_FRAMES or counts.get("nc2_bf16", 0) < LIVE_FRAMES:
+        raise AssertionError(f"the stream child launched the remap {counts}, not kernels 1-2 on every frame")
+    tmpl = load_npz(os.path.join(work, "out0.npz"))
+    if _dat_bytes(tmpl) != want:
+        raise AssertionError("live's template differs from phase 5's")
+    mapper = Mapper(tmpl, [(CAM, CAM)] * 6, blend=128, enable_gain=True, device="cuda")
+    got = np.fromfile(out, np.uint8)
+    if got.size != LIVE_FRAMES * CANVAS_H * 3 // 2 * CANVAS_W:
+        raise AssertionError(f"live wrote {got.size} bytes for {LIVE_FRAMES} frames")
+    worst = [0.0, 0.0, 0, 0]
+    for n, frame in enumerate(got.reshape(LIVE_FRAMES, CANVAS_H * 3 // 2, CANVAS_W)):
+        ref = mapper.stitch(frame_sets[n])[0].cpu().numpy().astype(np.float32)
+        d_y = np.abs(frame[:CANVAS_H] - ref[:CANVAS_H])
+        d_uv = np.abs(frame[CANVAS_H:] - ref[CANVAS_H:])
+        worst = [max(worst[0], d_y.mean()), max(worst[1], d_uv.mean()), max(worst[2], d_y.max()),
+                 max(worst[3], d_uv.max())]
+    log(f"  {LIVE_FRAMES} frames vs the port's Mapper on the card from live's template (equal to phase 5's): "
+        f"worst Y mean {worst[0]:.4f} max {worst[2]:.0f}, UV mean {worst[1]:.4f} max {worst[3]:.0f} "
+        "(bars: means < 0.2, maxima <= 2)")
+    if not (worst[0] < 0.2 and worst[1] < 0.2 and worst[2] <= 2 and worst[3] <= 2):
+        raise AssertionError("live's output disagrees with the Mapper")
+    del mapper, got
+
+    small = two_fisheye_rig()
+    for spec in small["inputs"]:
+        spec["options"]["width"] = spec["options"]["height"] = SMALL_CAM
+    small_rig = os.path.join(d, "small.json")
+    with open(small_rig, "w") as f:
+        json.dump(small, f)
+    sets = _small_sets(4, seed=90)
+    small_feeds = [os.path.join(d, f"small{k}.yuv") for k in range(2)]
+    for k, path in enumerate(small_feeds):
+        with open(path, "wb") as f:
+            for fs in sets:
+                f.write(fs[k].tobytes())
+    jobs = {}
+    for name, extra in (("plain", []), ("encrypt_args", ["--encrypt_args"])):
+        jobs[name] = (["octvr_tpu_torch.cli.live", "--rig", small_rig, "--inputs", ",".join(small_feeds),
+                       "--in_size", f"{SMALL_CAM}x{SMALL_CAM}", "--out_size", "512x256",
+                       "--out", os.path.join(d, f"small_{name}.yuv"), "--blend", "16",
+                       "--workdir", os.path.join(d, f"small_{name}"), *extra], _card_env(OCTVR_ARG_KEY=ARG_KEY))
+    runs = _run_together(jobs, "live, small rig,")
+    if not any("args encrypted" in text for _, text in runs["encrypt_args"][0]):
+        raise AssertionError("live --encrypt_args did not encrypt the stream child's arguments")
+    with open(os.path.join(d, "small_plain.yuv"), "rb") as fa, open(os.path.join(d, "small_encrypt_args.yuv"),
+                                                                     "rb") as fb:
+        a, b = fa.read(), fb.read()
+    if len(a) != len(sets) * 384 * 512 or a != b:
+        raise AssertionError(f"live --encrypt_args wrote {len(b)} bytes unlike plain live's {len(a)}")
+    log(f"  small rig: live --encrypt_args wrote the same {len(a)} bytes as live; 9b took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"seconds": took, **stages, "done": done[-1] if done else "", "launches": counts}
+
+
+def phase_gain_and_remap_cli(mt, pngs, d, smi):
+    """9c: ``python -m octvr_tpu_torch.cli.gain_and_remap`` on the card and
+    with OCTVR_PLATFORM=cpu, at once, on the 4K stitch template (phase
+    5's), the six reverse (rmap) templates and the six PNGs: the two
+    runs' .gain.png files within 1 LSB, at least 99.9% of values equal."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from octvr_tpu_torch.template import compile_rig, dump_dat
+    from octvr_tpu_torch.utils.png import read_png
+
+    log(f"== 9c. the gain_and_remap CLI at {CANVAS_W}x{CANVAS_H} on the card and on the CPU, 6 x {CAM}^2 PNGs")
+    t0 = time.perf_counter()
+    rig = six_cam_rig()
+
+    def write_dat(args):
+        path, tmpl = args
+        with open(path, "wb") as f:
+            dump_dat(tmpl, f)
+        return path
+
+    def rmap(i):
+        rev = compile_rig({"output": rig["inputs"][i], "inputs": [rig["output"]]}, CAM, CAM)
+        return write_dat((os.path.join(d, f"rmap{i}.dat"), rev))
+
+    with ThreadPoolExecutor(6) as pool:
+        rmaps = list(pool.map(rmap, range(6)))
+    stitch = write_dat((os.path.join(d, "stitch.dat"), mt))
+    imgs = {}
+    for dev in ("card", "cpu"):
+        os.makedirs(os.path.join(d, dev))
+        imgs[dev] = [shutil.copy(p, os.path.join(d, dev)) for p in pngs]
+    log(f"  templates written in {time.perf_counter() - t0:.2f} s")
+    runs = _run_together({
+        "card": (["octvr_tpu_torch.cli.gain_and_remap", stitch, *imgs["card"], *rmaps], _card_env()),
+        "cpu": (["octvr_tpu_torch.cli.gain_and_remap", stitch, *imgs["cpu"], *rmaps],
+                _card_env(OCTVR_PLATFORM="cpu")),
+    }, "gain_and_remap")
+    worst, equal, means = 0, 1.0, []
+    for a, b, src in zip(imgs["card"], imgs["cpu"], pngs):
+        ga, gb = read_png(a + ".gain.png").astype(np.int16), read_png(b + ".gain.png").astype(np.int16)
+        worst, equal = max(worst, int(np.abs(ga - gb).max())), min(equal, float((ga == gb).mean()))
+        means.append((float(read_png(src).mean()), float(ga.mean())))
+    spread = [max(m[i] for m in means) - min(m[i] for m in means) for i in (0, 1)]
+    log(f"  card vs CPU .gain.png: max diff {worst} (bar <= 1), equal share {equal:.6f} (bar >= 0.999); "
+        f"mean spread over the six images {spread[0]:.2f} before, {spread[1]:.2f} after; card "
+        f"{runs['card'][1]:.2f} s, CPU {runs['cpu'][1]:.2f} s; 9c took {time.perf_counter() - t0:.1f} s ({smi})")
+    if worst > 1 or equal < 0.999:
+        raise AssertionError("gain_and_remap on the card disagrees with the CPU")
+    if not spread[1] < spread[0]:
+        raise AssertionError("gain_and_remap did not pull the exposures together")
+    return {"card": runs["card"][1], "cpu": runs["cpu"][1]}
+
+
+def phase_offline_cli(mt, frame_sets, registration, smi):
+    """Phase 9, the offline stage and the operator CLIs on the card
+    (9a-9d)."""
+    import tempfile
+
+    t0 = time.time()
+    want = _dat_bytes(mt)
+    with tempfile.TemporaryDirectory() as d:
+        rig, pngs, dumps = phase_dump_cli(want, d, smi)
+        live = phase_live_cli(want, frame_sets, rig, d, smi)
+        gains = phase_gain_and_remap_cli(mt, pngs, d, smi)
+    res = phase_stitcher(registration["images"], smi, seam="graphcut", label="9d")
+    before = registration["stitched"]
+    log("  9d vs 8e (seam 'distance'), seconds: " + "; ".join(
+        f"{k} {res.times[k]:.3f} ({before.times[k]:.3f})" for k in ("register", "template", "compose")))
+    if [i.roi for i in res.template.inputs] == [i.roi for i in before.template.inputs]:
+        moved = np.mean([((a > 128) != (b > 128)).mean()
+                         for a, b in zip(res.template.seam_masks, before.template.seam_masks)])
+        log(f"  graph-cut seam masks differ from 8e's distance masks on {moved:.4f} of their pixels")
+    took = time.time() - t0
+    log(f"  phase 9 took {took:.1f} s")
+    return {"seconds": took, "dump": dumps, "live": live, "gain_and_remap": gains,
+            "stitcher": {k: res.times[k] for k in ("register", "template", "compose")}}
 
 
 _KERNEL_CLASSES = (
@@ -2476,6 +2807,7 @@ def main(argv):
     stream["7e"] = phase_stream_cli(small_mt, small_sizes, mt)
     log(f"  phase 7 took {time.time() - t7:.1f} s")
     registration = phase_registration(smi)
+    offline = phase_offline_cli(mt, frame_sets, registration, smi)
 
     log("== summary")
     log(f"total run time {time.time() - t_start:.1f} s")
@@ -2492,6 +2824,13 @@ def main(argv):
     log(f"4K stream CLI (7e): {stream['7e']}")
     log(f"registration (8c, 8 x 1920x1080 ring, card): " + "; ".join(
         f"{k} {v:.4f} s" for k, v in registration["times"].items()) + f"; phase 8 {registration['seconds']:.1f} s")
+    live = offline["live"]
+    log(f"offline stage and CLIs (phase 9, {offline['seconds']:.1f} s): dump at 4K "
+        + ", ".join(f"{k} {v:.2f}" for k, v in offline["dump"].items())
+        + f" s (five at once); live at 4K {live['seconds']:.2f} s (dump child {live['dump']:.2f}, stream child "
+        f"{live['stream']:.2f}; {live['done']}); gain_and_remap at 4K card {offline['gain_and_remap']['card']:.2f} "
+        f"s, CPU {offline['gain_and_remap']['cpu']:.2f} s (at once); Stitcher graphcut "
+        + ", ".join(f"{k} {v:.3f}" for k, v in offline["stitcher"].items()) + " s")
     log("4K remap launches: device ms (share of bound); call ms; grid_sample device ms")
     for key, t in times.items():
         log(f"  {key:22s} {t['ms']:.5f} ({t['bound_ms'] / t['ms']:.3f}); call {t['call_ms']:.5f}; "

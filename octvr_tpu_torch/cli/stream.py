@@ -18,7 +18,8 @@ the card; OCTVR_PLATFORM=cpu runs it on the CPU.  The mappers choose
 their own defaults for the device (``--pipeline auto`` and
 ``--blend_dtype``: yuv420 and bfloat16 on the card, rgb and float32 on
 the CPU).  A bad ``--args_enc`` blob prints one line and exits with
-EXIT_BAD_ARGS.
+EXIT_BAD_ARGS.  On the card the last line on stderr counts the remap
+kernel's launches (``ops.cuda_remap``).
 """
 
 import argparse
@@ -375,6 +376,10 @@ def main(argv=None):
         )
     else:
         print(f"# done: {n_popped} frames", file=sys.stderr)
+    if device.type == "cuda":
+        from ..ops import cuda_remap
+
+        print(f"# remap launches: {cuda_remap.LAUNCHES} {cuda_remap.COUNTS}", file=sys.stderr)
 
 
 if __name__ == "__main__":

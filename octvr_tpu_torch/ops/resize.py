@@ -1,19 +1,29 @@
-"""cv::resize INTER_LINEAR (octvr_tpu/ops/resize.py), on the host and
-on torch planes.
+"""cv::resize INTER_LINEAR and INTER_NEAREST (octvr_tpu/ops/resize.py),
+on the host and on torch planes.
 
 ``resize_bilinear_host`` is the host version, numpy in and out, for the
 offline stage (vignette maps, seam masks): the original's numpy path,
 bit for bit.  On the device the sample indices and weights depend only
 on the two sizes, so the host computes them once in numpy with the same
 f32 arithmetic (``resize_plan``); per frame the device gathers four taps
-and lerps (``resize_apply``).
+and lerps (``resize_apply``).  ``resize_bilinear``, ``resize_nearest``
+and ``resize_area`` keep the original's names and signatures on numpy
+arrays (``xp`` is numpy, the only array module of the port's host code).
 """
 
 from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["ResizePlan", "resize_apply", "resize_bilinear_host", "resize_plan"]
+__all__ = [
+    "ResizePlan",
+    "resize_apply",
+    "resize_area",
+    "resize_bilinear",
+    "resize_bilinear_host",
+    "resize_nearest",
+    "resize_plan",
+]
 
 
 @dataclass(frozen=True)
@@ -85,3 +95,33 @@ def resize_apply(img, plan: ResizePlan):
     top = r0.index_select(-1, plan.x0) * plan.wx1 + r0.index_select(-1, plan.x1) * plan.wx
     bot = r1.index_select(-1, plan.x0) * plan.wx1 + r1.index_select(-1, plan.x1) * plan.wx
     return top * plan.wy1 + bot * plan.wy
+
+
+def resize_bilinear(img, out_h, out_w, xp=np):
+    """The original's name for ``resize_bilinear_host``."""
+    return resize_bilinear_host(img, out_h, out_w)
+
+
+def resize_nearest(img, out_h, out_w, xp=np):
+    h, w = img.shape[:2]
+    if (h, w) == (out_h, out_w):
+        return img
+    # INTER_NEAREST mapping: sx = floor(dx * scale)
+    ys = xp.clip(
+        xp.floor(xp.arange(out_h, dtype=np.float32) * (h / out_h)), 0, h - 1
+    ).astype(np.int32)
+    xs = xp.clip(
+        xp.floor(xp.arange(out_w, dtype=np.float32) * (w / out_w)), 0, w - 1
+    ).astype(np.int32)
+    return img[ys][:, xs]
+
+
+def resize_area(img, out_h, out_w, xp=np):
+    """Integer-factor box downsample (used for working-scale thumbnails when
+    exact cv parity is not required)."""
+    h, w = img.shape[:2]
+    if h % out_h == 0 and w % out_w == 0:
+        fh, fw = h // out_h, w // out_w
+        shape = (out_h, fh, out_w, fw) + img.shape[2:]
+        return img.reshape(shape).mean(axis=(1, 3))
+    return resize_bilinear(img, out_h, out_w, xp=xp)

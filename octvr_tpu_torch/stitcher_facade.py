@@ -57,8 +57,9 @@ class Stitcher:
         rBRIEF (ORB role), "blob" = Hessian blob detector (SURF role,
         low-texture rigs); levels > 1 = multi-scale pyramid detector;
         range_width = ordered-sequence range matcher.  ``seam``:
-        "distance"; the image-driven "graphcut" raises
-        NotImplementedError (the port's create_masks)."""
+        "distance", or "graphcut", which passes the used images to
+        ``create_masks`` for content-aware seams (host code, as in the
+        JAX facade)."""
         self.device = resolve_device(device)
         self.ba = ba
         self.conf_thresh = conf_thresh

@@ -4,9 +4,7 @@ Builds per-input remap tables, masks, ROIs, seam masks and vignette maps
 from a rig description — the MapperTemplate of the reference
 (modules/octvr/src/template.cpp) re-designed as vectorized NumPy f64 math
 (the offline path never touches the card; its *artifacts* feed the online
-path as constants).  The port's copy of octvr_tpu/template/compiler.py:
-seam masks by the distance seam finder; the image-driven finders
-(graph cut, dp) are not in the port yet.
+path as constants).  The port's copy of octvr_tpu/template/compiler.py.
 """
 
 from dataclasses import dataclass, field
@@ -138,11 +136,12 @@ class MapperTemplate:
     # ---------------------------------------------------------- seam masks
 
     def create_masks(self, imgs=None, seam="auto"):
-        """Compute seam masks at <=960 px working width (template.cpp:155-204)
-        with the distance seam finder.  ``seam``: "auto" or "distance"
-        without images, as in octvr_tpu; the image-driven finders of the
-        original ("graphcut", "dp" and their *_grad variants, and "auto"
-        with images) are not in the port yet."""
+        """Compute seam masks at <=960 px working width (template.cpp:155-204).
+
+        ``seam``: "auto" (distance without images, graph-cut with, like
+        template.cpp:191-195), "distance", "dp", "dp_grad", "graphcut",
+        "graphcut_grad" (the *_grad variants use the reference's
+        COST_COLOR_GRAD normalization, seam_finders.cpp:1283-1335)."""
         w, h = self.out_size
         scale = min(1.0, SEAM_WORK_WIDTH / w)
 
@@ -155,12 +154,39 @@ class MapperTemplate:
 
         if seam == "auto":
             seam = "graphcut" if imgs else "distance"
-        if seam != "distance":
-            raise NotImplementedError(
-                f"seam kind {seam!r}: the image-driven seam finders are not in the port "
-                "(ROADMAP queue 1 item 13)"
-            )
-        seams = distance_seam_find(scaled, corners, max_n=1)
+        if seam != "distance" and not imgs:
+            raise ValueError(f"seam kind {seam!r} needs input images")
+
+        if seam == "distance":
+            seams = distance_seam_find(scaled, corners, max_n=1)
+        else:
+            srcs = []
+            for inp, img in zip(self.inputs, imgs):
+                warped = _remap_image_cpu(img, inp.map1, inp.map2)
+                sh2, sw2 = scaled[len(srcs)].shape
+                srcs.append(
+                    resize_bilinear_host(warped.astype(np.float32) / 255.0, sh2, sw2)
+                )
+            if seam in ("graphcut", "graphcut_grad"):
+                from .graphcut import graphcut_seam_find
+
+                seams = graphcut_seam_find(
+                    srcs,
+                    scaled,
+                    corners,
+                    cost_type="color_grad" if seam == "graphcut_grad" else "color",
+                )
+            elif seam in ("dp", "dp_grad"):
+                from .seam import dp_seam_find
+
+                seams = dp_seam_find(
+                    srcs,
+                    scaled,
+                    corners,
+                    cost_type="color_grad" if seam == "dp_grad" else "color",
+                )
+            else:
+                raise ValueError(f"unknown seam kind {seam!r}")
 
         self.seam_masks = []
         for inp, sm in zip(self.inputs, seams):

@@ -221,14 +221,15 @@ def test_cuda_without_card_raises():
 def test_entry_points_default_to_the_card(rigs, monkeypatch):
     """Mapper, FastMapper and make_mesh run on the card unless asked for
     the CPU, and ShardedMapper takes the mesh's device; so do the CLIs
-    without OCTVR_PLATFORM (the register CLI too), an AsyncMultiMapper
+    without OCTVR_PLATFORM (the register, dump, gain_and_remap and live
+    CLIs too), an AsyncMultiMapper
     over CUDA mappers, and the registration path (register_images,
     detect_and_describe, the blobs, match_images, bundle_adjust_ray_torch
     and the Stitcher facade).  Without a card the default raises, with no
     fallback to the CPU."""
     from types import SimpleNamespace
 
-    from octvr_tpu_torch.cli import apply_platform_env, monkey, register, stream
+    from octvr_tpu_torch.cli import apply_platform_env, dump, gain_and_remap, live, monkey, register, stream
     from octvr_tpu_torch.registration import (
         detect_and_describe,
         detect_and_describe_blobs,
@@ -259,6 +260,10 @@ def test_entry_points_default_to_the_card(rigs, monkeypatch):
             lambda: stream.main(["--in_size", "8x8", "--outputs", "t.npz", "--out", "o.yuv"]),
             lambda: monkey.main(["-t", "t.npz", "--inputs", "a,b", "--in_size", "8x8"]),
             lambda: register.main(["-o", "rig.json", "a.png", "b.png"]),
+            lambda: dump.main(["-o", "t.dat", "rig.json"]),
+            lambda: gain_and_remap.main(["t.dat", "a.png", "b.png", "r0.dat", "r1.dat"]),
+            lambda: live.main(["--rig", "rig.json", "--inputs", "a", "--in_size", "8x8", "--out_size", "16x8",
+                               "--out", "o.yuv"]),
             lambda: AsyncMultiMapper([SimpleNamespace(device=torch.device("cuda"))]),
             lambda: register_images([np.zeros((64, 64, 3), np.float32)] * 2),
             lambda: detect_and_describe(gray),
@@ -310,7 +315,11 @@ def test_port_imports_no_jax():
     assert {"octvr_tpu_torch.runtime", "octvr_tpu_torch.runtime.pipeline", "octvr_tpu_torch.presets",
             "octvr_tpu_torch.cli.stream", "octvr_tpu_torch.cli.map", "octvr_tpu_torch.cli.monkey",
             "octvr_tpu_torch.cli.monkey_gen", "octvr_tpu_torch.cli.register",
-            "octvr_tpu_torch.stitcher_facade", "octvr_tpu_torch.cameras.warpers"} <= set(mods)
+            "octvr_tpu_torch.stitcher_facade", "octvr_tpu_torch.cameras.warpers",
+            "octvr_tpu_torch.cli.dump", "octvr_tpu_torch.cli.gain_and_remap", "octvr_tpu_torch.cli.live",
+            "octvr_tpu_torch.cli.console", "octvr_tpu_torch.cli.sinks", "octvr_tpu_torch.cli.inputs",
+            "octvr_tpu_torch.template.graphcut", "octvr_tpu_torch.template.morph",
+            "octvr_tpu_torch.stitch.timelapser"} <= set(mods)
     assert {f"octvr_tpu_torch.registration.{m}" for m in (
         "autocalib", "estimators", "bundle", "wave", "features", "blobs", "matchers",
         "bundle_torch", "stitcher", "convert")} | {"octvr_tpu_torch.registration"} <= set(mods)
