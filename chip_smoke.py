@@ -151,6 +151,35 @@ Phases, each failing the run on any error:
         .gain.png files within 1 LSB, at least 99.9% of values equal;
      d. Stitcher(conf_thresh=0.5, seam="graphcut").stitch of 8c's images
         to 3840x1920 at 8e's bars, its seconds beside 8e's.
+  10. the distributed path (runtime/distributed.py, the band group across
+     ranks, DistributedBands): ranks that are fresh interpreters of this
+     script (``--rank``), joined through a file:// rendezvous, sharing
+     the one card; a rank that fails fails the run.  Each rank resets
+     the remap counts before its timed run and reads them after it
+     (kernel 6, one launch per plane per frame).  Their frame rates
+     measure contention and gloo's host staging, not scaling:
+     a. one NCCL rank, make_global_mesh(1, 4) on phase 6's host plan:
+        its 12 frame sets and gains equal to phase 6's bit for bit;
+        ms/frame, enqueue, the band group's synchronised ms, beside
+        phase 6's;
+     b. four gloo ranks, one band each, the same frame sets: the
+        assembled output within Y and UV mean 0.02, max 2 and gains
+        rtol 1e-5 of phase 6's; per rank ms/frame, enqueue, band group
+        ms, peak memory and launches per frame;
+     c. four gloo ranks as a (2, 2) grid, make_global_mesh(2, 4): two
+        data rows of two ranks holding two bands each, each row its own
+        6 frame sets, the local_output_shards indices checked, at 10b's
+        bars;
+     d. two gloo ranks on two 512^2 fisheyes -> 512x256 in f32: pairwise
+        and blocks gains, split on and off, feather, rgb with
+        out_format="rgb", source windows, each within max 1 and gains
+        rtol 1e-6 of the CUDA make_mesh(1, 2) output;
+     e. bundle_adjust_ray_torch(mesh=) on 2 and 4 gloo ranks on 8c's
+        matches, held to 8d's one-rank result (focals rtol 1e-3,
+        rotations 1e-3 rad, rms within 1%), its time and host syncs;
+     f. ``python -m octvr_tpu_torch.tools.multihost_stitch --backend
+        gloo`` at the JAX test's shape, --procs 2 --devices-per-proc 2
+        and --procs 4 --devices-per-proc 1: parity_ok, frames/s.
 Kernel times (``ms``, ``library_ms``) are device times
 (``device_ms``): K back-to-back calls captured in one CUDA graph, K
 enough for ~2 ms of work, replayed in 5 CUDA-event windows; the median
@@ -163,13 +192,15 @@ JAX.
 
     python3 chip_smoke.py --time-remap ROOT
     python3 chip_smoke.py --time-taps ROOT
+    python3 chip_smoke.py --distributed
 
 times only the 4K remap launches (phase 3h's rows, device and call ms),
 or only kernel 8's three bodies at the probe's defaults (3g's timing,
 each held to A), of the package in the checkout at ROOT and prints them
 as one JSON line: run it on two checkouts in turns, in one call on one
 card, to compare their kernels (an earlier commit's, or an edited copy
-of a source).
+of a source).  ``--distributed`` runs phase 10 alone, with the inputs it
+takes from phases 2, 6 and 8 made first.
 """
 
 import ast
@@ -177,8 +208,11 @@ import importlib.util
 import json
 import math
 import os
+import pickle
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1318,12 +1352,12 @@ def phase_sharded_small():
                 raise AssertionError("sharded vs Mapper parity failed")
 
 
-def make_frame_sets():
-    """ITERS frame sets of the 4K rig on the card, from seed 0."""
+def make_frame_sets(n=ITERS):
+    """``n`` frame sets of the 4K rig on the card, from seed 0."""
     rng = np.random.default_rng(0)
     base = [rng.integers(0, 255, (CAM * 3 // 2, CAM), dtype=np.uint8) for _ in range(6)]
     base_t = torch.from_numpy(np.stack(base)).cuda().to(torch.int16)
-    sets = [list((base_t + i).clamp(0, 255).to(torch.uint8).unbind(0)) for i in range(ITERS)]
+    sets = [list((base_t + i).clamp(0, 255).to(torch.uint8).unbind(0)) for i in range(n)]
     torch.cuda.synchronize()
     return sets
 
@@ -1647,8 +1681,11 @@ def phase_sharded(host, t_host, frame_sets, main_path):
     if not err < 1e-3:
         raise AssertionError("kernel 6 disagrees at the sharded path's launches")
     del ys, uvs, bufs
+    p6 = sharded_reference(sm, sets)
+    p6.update(ms=ms1, enqueue=enq1)
+    log(f"  band group (LocalBands): {p6['coll_calls']:.0f} calls, {p6['coll_ms']:.3f} ms/frame synchronised")
     profile(lambda fs: sm.stitch_batch([f[None] for f in fs]), sets, ms1)
-    return {"launches": counts1["concat_nc1_bf16"] + counts1["concat_nc2_bf16"], "err": err, "sm": sm}
+    return {"launches": counts1["concat_nc1_bf16"] + counts1["concat_nc2_bf16"], "err": err, "sm": sm, "p6": p6}
 
 
 def phase_sharded_rgb(host, t_host, frame_sets, rgb_path):
@@ -2294,6 +2331,8 @@ def phase_bundle(res, smi):
         f"{stats['iters']}, host syncs {stats['syncs']}; {ms:.1f} ms on the card, numpy {ms_np:.1f} ms ({smi})")
     if rel > 0.02:
         raise AssertionError(f"card BA focals {fg} vs numpy {fw}")
+    return {"focals": fg.tolist(), "R": [c.R for c in got], "rms": rms, "ms": ms, "syncs": stats["syncs"],
+            "features": [f.to("cpu") for f in res.features], "matches": res.matches, "cams": cams}
 
 
 def _world_error(pano, covered, step=8):
@@ -2406,12 +2445,12 @@ def phase_registration(smi):
     log(f"== 8. registration: rendered {REG_N} x {REG_W}x{REG_H} views in {time.time() - t0:.1f} s")
     phase_match(phase_features(images, smi), smi)
     res = phase_register(images, smi)
-    phase_bundle(res, smi)
+    ba = phase_bundle(res, smi)
     stitched = phase_stitcher(images, smi)
     phase_register_cli(smi)
     took = time.time() - t0
     log(f"  phase 8 took {took:.1f} s")
-    return {"seconds": took, "times": res.times, "images": images, "stitched": stitched}
+    return {"seconds": took, "times": res.times, "images": images, "stitched": stitched, "ba": ba}
 
 
 # ---------------------------------------------------------------- phase 9
@@ -2706,6 +2745,504 @@ def phase_offline_cli(mt, frame_sets, registration, smi):
             "stitcher": {k: res.times[k] for k in ("register", "template", "compose")}}
 
 
+# --------------------------------------------------------------- phase 10
+
+DIST_LIMIT = 240  # seconds for one launch of ranks, and for a collective's wait
+DIST_SMALL = 512  # 10d: two 512^2 fisheyes -> 512x256, mesh (1, 2)
+DIST_SMALL_OPTIONS = (
+    ("pairwise gains, split", {}),
+    ("pairwise gains, no split", {"coarse_split": 3}),
+    ("blocks gains", {"enable_gain": "blocks"}),
+    ("feather", {"blend": -8}),
+    ("rgb, out_format rgb", {"pipeline": "rgb", "out_format": "rgb"}),
+    ("source windows", {"src_windows": True}),
+)
+DIST_TOOL = ((2, 2), (4, 1))  # 10f: (--procs, --devices-per-proc)
+
+
+class _TimedGroup:
+    """A band group whose collective calls are timed, each synchronised
+    before and after: their count and wall ms.  A group of ranks meets
+    at a barrier first, so a rank's time is the collective's own and not
+    its wait for the slowest rank."""
+
+    def __init__(self, group):
+        from octvr_tpu_torch.parallel import DistributedBands
+
+        self.group, self.size, self.calls, self.ms = group, group.size, 0, 0.0
+        self.ranks = group.group if isinstance(group, DistributedBands) else None
+
+    def _timed(self, fn, *args):
+        torch.cuda.synchronize()
+        if self.ranks is not None:
+            torch.distributed.barrier(group=self.ranks)
+        t0 = time.perf_counter()
+        y = fn(*args)
+        torch.cuda.synchronize()
+        self.ms += (time.perf_counter() - t0) * 1e3
+        self.calls += 1
+        return y
+
+    def sum(self, x):
+        return self._timed(self.group.sum, x)
+
+    def concat(self, x, dim):
+        return self._timed(self.group.concat, x, dim)
+
+
+def _collective_ms(sm, batches):
+    """The band group's calls and their synchronised ms per frame over
+    ``batches`` (one frame set each), in a pass of its own."""
+    group = sm.group
+    sm.group = timed = _TimedGroup(group)
+    try:
+        for b in batches:
+            sm.stitch_batch(b)
+        torch.cuda.synchronize()
+    finally:
+        sm.group = group
+    return timed.calls / len(batches), timed.ms / len(batches)
+
+
+def _timed_frames(sm, batches):
+    """Each one-frame batch through stitch_batch, synchronised at the end:
+    (enqueue ms/frame, ms/frame)."""
+    t0 = time.time()
+    for b in batches:
+        sm.stitch_batch(b)
+    enqueue = (time.time() - t0) / len(batches) * 1e3
+    torch.cuda.synchronize()
+    return enqueue, (time.time() - t0) / len(batches) * 1e3
+
+
+def sharded_reference(sm, sets):
+    """Phase 6's make_mesh(1, 4) stitcher on ``sets`` at B=1, for phase
+    10: each frame's band stack and gains on the host, and the band
+    group's (LocalBands) calls and ms per frame."""
+    one = [[f[None] for f in fs] for fs in sets]
+    calls, ms = _collective_ms(sm, one)
+    outs, gains = [], []
+    for b in one:
+        out, g = sm.stitch_batch(b)
+        outs.append(out[0].cpu().numpy())
+        gains.append(g[0].cpu().numpy())
+    return {"outs": outs, "gains": gains, "coll_calls": calls, "coll_ms": ms}
+
+
+# ---- the ranks (``chip_smoke.py --rank JOB RANK``)
+
+
+def _rank_stitch_4k(sub, ctx):
+    """10a-10c on one rank: phase 6's host plan cut to this rank's bands,
+    its data row's frame sets at B=1 through global_frame_batch: ms/frame,
+    enqueue, the band group's calls and ms, peak memory and launches, then
+    each frame's local_output_shards and gains."""
+    import torch.distributed as dist
+
+    from octvr_tpu_torch.ops import cuda_remap
+    from octvr_tpu_torch.parallel import ShardedMapper
+    from octvr_tpu_torch.runtime.distributed import global_frame_batch, local_output_shards, make_global_mesh
+
+    mesh = make_global_mesh(*sub["mesh"], device="cuda")
+    sm = ShardedMapper.from_plan(ctx["plan"].bands(mesh.band_lo, mesh.band_hi).to(mesh.device), mesh)
+    one = [global_frame_batch(torch.stack(ctx["sets"][i])[None], mesh) for i in sub["frames"][mesh.data_index]]
+    n = len(one)
+    sm.stitch_batch(one[0])
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_remap.reset_counts()
+    enqueue, ms = _timed_frames(sm, one)
+    counts = dict(cuda_remap.COUNTS)
+    if counts != {"concat_nc1_bf16": n, "concat_nc2_bf16": n}:
+        raise AssertionError(f"{sub['name']}: expected one kernel-6 launch per plane per frame, got {counts}")
+    peak = torch.cuda.max_memory_allocated()
+    dist.barrier()
+    calls, coll_ms = _collective_ms(sm, one)
+    shards, gains = [], []
+    for b in one:
+        out, g = sm.stitch_batch(b)
+        shards.append(local_output_shards(out, mesh))
+        gains.append(g[0].cpu().numpy())
+    return dict(bands=(mesh.band_lo, mesh.band_hi), data_index=mesh.data_index, group=type(sm.group).__name__,
+                backend=dist.get_backend(mesh.group), ms=ms, enqueue=enqueue, coll_calls=calls, coll_ms=coll_ms,
+                peak=peak, launches={k: v / n for k, v in counts.items()}, shards=shards, gains=gains)
+
+
+def _small_dist_rig():
+    """10d's rig: two 512^2 fisheyes -> 512x256 and one frame set, stacked
+    [1, 2, 768, 512] on the card."""
+    from octvr_tpu_torch.template import compile_rig
+    from rigs import two_fisheye_rig
+
+    rig = two_fisheye_rig()
+    for spec in rig["inputs"]:
+        spec["options"].update(width=DIST_SMALL, height=DIST_SMALL)
+    mt = compile_rig(rig, 512, 256)
+    mt.create_masks()
+    frames = _in_gamut_frames(np.random.default_rng(20), 2, DIST_SMALL, [1.15, 0.85])
+    return mt, [(DIST_SMALL, DIST_SMALL)] * 2, torch.from_numpy(np.stack(frames)[None]).cuda()
+
+
+def _small_dist_kw(kw):
+    return {"blend": 16, "enable_gain": True, "blend_dtype": "float32", "pipeline": "yuv420", **kw}
+
+
+def _rank_small(sub, ctx):
+    """10d on one rank: each option on make_global_mesh(1, 2); its
+    local_output_shards, gains and launches."""
+    import torch.distributed as dist
+
+    from octvr_tpu_torch.ops import cuda_remap
+    from octvr_tpu_torch.parallel import ShardedMapper
+    from octvr_tpu_torch.runtime.distributed import global_frame_batch, local_output_shards, make_global_mesh
+
+    mt, sizes, frames = _small_dist_rig()
+    res = {}
+    for label, kw in DIST_SMALL_OPTIONS:
+        mesh = make_global_mesh(1, 2, device="cuda")
+        sm = ShardedMapper(mt, sizes, mesh, **_small_dist_kw(kw))
+        cuda_remap.reset_counts()
+        out, g = sm.stitch_batch(global_frame_batch(frames, mesh))
+        torch.cuda.synchronize()
+        counts = dict(cuda_remap.COUNTS)
+        if not counts:
+            raise AssertionError(f"10d {label}: no remap kernel launched")
+        res[label] = dict(shards=local_output_shards(out, mesh), gains=g[0].cpu().numpy(), launches=counts,
+                          sliced=sm.plan.sliced, split=sm.plan.split_level >= 0)
+        dist.barrier()
+    return res
+
+
+def _rank_ba(sub, ctx):
+    """10e on one rank: bundle_adjust_ray_torch(mesh=make_global_mesh())
+    on phase 8's ring matches, after a two-iteration warm-up."""
+    import copy
+
+    from octvr_tpu_torch.registration.bundle_torch import bundle_adjust_ray_torch
+    from octvr_tpu_torch.runtime.distributed import make_global_mesh
+
+    ring = ctx["ring"]
+    mesh = make_global_mesh(device="cuda")
+    bundle_adjust_ray_torch(ring["features"], ring["matches"], copy.deepcopy(ring["cams"]), 0.5, max_iter=2,
+                            mesh=mesh)
+    stats = {}
+    t0 = time.perf_counter()
+    cams, rms = bundle_adjust_ray_torch(ring["features"], ring["matches"], copy.deepcopy(ring["cams"]), 0.5,
+                                        mesh=mesh, stats=stats)
+    ms = (time.perf_counter() - t0) * 1e3
+    return dict(focals=[c.focal for c in cams], R=[c.R for c in cams], rms=rms, ms=ms, stats=stats)
+
+
+_RANK_SUBS = {"stitch4k": _rank_stitch_4k, "small": _rank_small, "ba": _rank_ba}
+
+
+def rank_main(job_path, rank):
+    """``--rank JOB RANK``: one rank of a phase-10 launch.  Joins the
+    group, runs the job's sub-phases and pickles their results to
+    ``<out>/rank<RANK>.pkl``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from octvr_tpu_torch.runtime.distributed import init_distributed
+
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    if job["world"] == 1:
+        # init_distributed leaves one process alone: a one-rank
+        # communicator is joined directly
+        torch.cuda.set_device(0)
+        dist.init_process_group(job["backend"], init_method=job["init"], world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=DIST_LIMIT))
+    else:
+        init_distributed(job["init"], job["world"], rank, backend=job["backend"], timeout=DIST_LIMIT)
+    ctx = {}
+    if job.get("plan"):
+        with open(job["plan"], "rb") as f:
+            ctx["plan"] = pickle.load(f)
+        ctx["sets"] = make_frame_sets(SHARD_ITERS)
+    if job.get("ring"):
+        with open(job["ring"], "rb") as f:
+            ctx["ring"] = pickle.load(f)
+    results = {sub["name"]: _RANK_SUBS[sub["kind"]](sub, ctx) for sub in job["subs"]}
+    with open(os.path.join(job["out"], f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+# ---- the parent
+
+
+def _launch(tmp, world, backend, subs, **paths):
+    """Runs ``subs`` on ``world`` ranks of this script (fresh
+    interpreters, joined through a file:// rendezvous), all killed if one
+    fails or DIST_LIMIT passes.  Returns (per rank its results, seconds)."""
+    from octvr_tpu_torch.tools.multihost_stitch import run_ranks
+
+    d = tempfile.mkdtemp(dir=tmp)
+    job = dict(world=world, backend=backend, init=f"file://{d}/rendezvous", out=d, subs=subs, **paths)
+    path = _dump(d, "job.pkl", job)
+    t0 = time.time()
+    run_ranks([[sys.executable, os.path.abspath(__file__), "--rank", path, str(r)] for r in range(world)],
+              DIST_LIMIT)
+    took = time.time() - t0
+    res = []
+    for r in range(world):
+        with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    return res, took
+
+
+def _assemble(shard_lists, shape, dtype, label):
+    """The global output of one step from every rank's
+    local_output_shards, each element written once."""
+    full = np.zeros(shape, dtype)
+    hits = np.zeros(shape, np.int32)
+    for shards in shard_lists:
+        for idx, arr in shards:
+            full[idx] = arr
+            hits[idx] += 1
+    if not (hits == 1).all():
+        raise AssertionError(f"{label}: the ranks' shards do not tile the output")
+    return full
+
+
+def _band_errors(got, want, obh):
+    """(Y mean, UV mean, max) abs err of two band stacks [S*obh*3/2, oW]."""
+    d = np.abs(got.astype(np.float32) - want.astype(np.float32)).reshape(-1, obh * 3 // 2, got.shape[-1])
+    return float(d[:, :obh].mean()), float(d[:, obh:].mean()), float(d.max())
+
+
+def _rank_lines(label, ranks, name, p6, smi):
+    for i, r in enumerate(ranks):
+        a = r[name]
+        log(f"  {label} rank {i} bands [{a['bands'][0]}, {a['bands'][1]}) row {a['data_index']} "
+            f"({a['backend']}): {a['ms']:.3f} ms/frame, enqueue {a['enqueue']:.3f} ms/frame, band group "
+            f"{a['coll_calls']:.0f} calls {a['coll_ms']:.3f} ms/frame, peak device memory "
+            f"{a['peak'] / 2**30:.3f} GiB, remap launches per frame {a['launches']}")
+    log(f"  {label} beside phase 6 (make_mesh(1, {SPACE}), LocalBands): {p6['ms']:.3f} ms/frame, enqueue "
+        f"{p6['enqueue']:.3f}, band group {p6['coll_calls']:.0f} calls {p6['coll_ms']:.3f} ms/frame ({smi})")
+
+
+def _check_4k(label, ranks, name, p6, frames, obh, exact):
+    """The ranks' 4K outputs against phase 6's: at step k data row d
+    stitched frame set ``frames[d][k]``.  Bit for bit, or at 10b's bars;
+    returns the worst (Y mean, UV mean, max, gains rtol)."""
+    worst = [0.0, 0.0, 0.0, 0.0]
+    rows, W = p6["outs"][0].shape
+    nd = len(frames)
+    for k in range(len(frames[0])):
+        full = _assemble([r[name]["shards"][k] for r in ranks], (nd, rows, W), np.uint8, label)
+        for d in range(nd):
+            i = frames[d][k]
+            want, g_want = p6["outs"][i], p6["gains"][i]
+            for r in ranks:
+                if r[name]["data_index"] == d:
+                    g = r[name]["gains"][k]
+                    worst[3] = max(worst[3], float(np.max(np.abs(g - g_want) / np.abs(g_want))))
+                    if exact and not np.array_equal(g, g_want):
+                        raise AssertionError(f"{label}: frame {i} gains differ from phase 6's")
+            if exact:
+                if not np.array_equal(full[d], want):
+                    raise AssertionError(f"{label}: frame {i} differs from phase 6's output")
+                continue
+            worst[:3] = [max(x, y) for x, y in zip(worst[:3], _band_errors(full[d], want, obh))]
+    if not exact and not (worst[0] < 0.02 and worst[1] < 0.02 and worst[2] <= 2 and worst[3] < 1e-5):
+        raise AssertionError(f"{label}: vs phase 6 Y mean {worst[0]}, UV mean {worst[1]}, max {worst[2]}, "
+                             f"gains rtol {worst[3]} (bars 0.02, 0.02, 2, 1e-5)")
+    return worst
+
+
+def _check_shard_indices(label, ranks, name, rows_per_band):
+    """Each rank's local_output_shards indices: its data row on the batch
+    axis (slice(None) for one row), its bands on the rows."""
+    for i, r in enumerate(ranks):
+        a = r[name]
+        nd_many = any(x[name]["data_index"] for x in ranks)
+        d = a["data_index"]
+        want = [(slice(d, d + 1) if nd_many else slice(None), slice(s * rows_per_band, (s + 1) * rows_per_band),
+                 slice(None)) for s in range(*a["bands"])]
+        for shards in a["shards"]:
+            if [idx for idx, _ in shards] != want:
+                raise AssertionError(f"{label} rank {i}: shard indices {[idx for idx, _ in shards]}, want {want}")
+
+
+def _check_ba(label, ranks, one):
+    """10e: every rank the same result, held to 8d's one-rank result."""
+    a = ranks[0]["ba"]
+    for r in ranks[1:]:
+        if r["ba"]["focals"] != a["focals"] or r["ba"]["rms"] != a["rms"]:
+            raise AssertionError(f"{label}: the ranks disagree")
+    f_rel = float(np.max(np.abs(np.array(a["focals"]) / np.array(one["focals"]) - 1)))
+    rot = max(_rot_angle(x, y) for x, y in zip(a["R"], one["R"]))
+    rms_rel = abs(a["rms"] / one["rms"] - 1)
+    log(f"  {label}: focals rtol {f_rel:.2e} (bar 1e-3), rotations {rot:.2e} rad (bar 1e-3), rms {a['rms']:.5f} "
+        f"vs {one['rms']:.5f} ({rms_rel:.2e}, bar 1%); {a['ms']:.1f} ms, iterations {a['stats']['iters']}, host "
+        f"syncs {a['stats']['syncs']} (8d, one rank: {one['ms']:.1f} ms, {one['syncs']} syncs)")
+    if not (f_rel < 1e-3 and rot < 1e-3 and rms_rel < 0.01):
+        raise AssertionError(f"{label}: disagrees with 8d")
+
+
+def _rot_angle(A, B):
+    d = np.asarray(A) @ np.asarray(B).T
+    return math.acos(np.clip((np.trace(d) - 1) / 2, -1, 1))
+
+
+def _dump(tmp, name, obj):
+    path = os.path.join(tmp, name)
+    with open(path, "wb") as f:
+        pickle.dump(obj, f, protocol=pickle.HIGHEST_PROTOCOL)
+    return path
+
+
+def phase_distributed(host, p6, ba, smi):
+    """Phase 10 (10a-10f), the distributed path on the card
+    (runtime/distributed.py, DistributedBands, bundle_adjust_ray_torch
+    (mesh=), tools/multihost_stitch): ranks of this script, started
+    fresh, that share the card.  ``host``: phase 6's host plan; ``p6``:
+    its outputs, gains, times and band-group times (sharded_reference);
+    ``ba``: 8d's one-rank result and its inputs.  Returns its numbers."""
+    t0 = time.time()
+    log(f"== 10. the distributed path: torch.distributed ranks on the card ({smi}); ranks that share one card "
+        f"measure contention and gloo's host staging, not scaling")
+    sets = len(p6["outs"])
+    obh = host.obh
+    rows = obh * 3 // 2
+    tmp = tempfile.mkdtemp(prefix="phase10-")
+    summary = {}
+    try:
+        t = time.time()
+        plan_path = _dump(tmp, "plan.pkl", host)
+        ring_path = _dump(tmp, "ring.pkl", {k: ba[k] for k in ("features", "matches", "cams")})
+        log(f"  host plan and ring written for the ranks in {time.time() - t:.1f} s")
+
+        # 10a: one NCCL rank holding all four bands
+        every = [list(range(sets))]
+        (a,), took = _launch(tmp, 1, "nccl", [dict(kind="stitch4k", name="10a", mesh=(1, SPACE), frames=every)],
+                             plan=plan_path)
+        log(f"== 10a. one-rank NCCL group, make_global_mesh(1, {SPACE}), {sets} frame sets ({took:.1f} s)")
+        if a["10a"]["backend"] != "nccl" or a["10a"]["group"] != "DistributedBands":
+            raise AssertionError(f"10a ran {a['10a']['group']} on {a['10a']['backend']}")
+        _rank_lines("10a", [a], "10a", p6, smi)
+        _check_4k("10a", [a], "10a", p6, every, obh, exact=True)
+        _check_shard_indices("10a", [a], "10a", rows)
+        log(f"  10a: every frame and its gains equal to phase 6's bit for bit")
+        summary["10a"] = a["10a"]["ms"]
+
+        # 10b, 10c, 10e on four gloo ranks
+        half = sets // 2
+        rows_2x2 = [list(range(half)), list(range(half, 2 * half))]
+        subs = [dict(kind="stitch4k", name="10b", mesh=(1, SPACE), frames=every),
+                dict(kind="stitch4k", name="10c", mesh=(2, SPACE), frames=rows_2x2),
+                dict(kind="ba", name="ba")]
+        r4, took = _launch(tmp, 4, "gloo", subs, plan=plan_path, ring=ring_path)
+        log(f"== 10b. four gloo ranks sharing the card, make_global_mesh(1, {SPACE}), one band each, {sets} "
+            f"frame sets (launch with 10c and 10e: {took:.1f} s); the band group's ms timed after a barrier")
+        _rank_lines("10b", r4, "10b", p6, smi)
+        _check_shard_indices("10b", r4, "10b", rows)
+        w = _check_4k("10b", r4, "10b", p6, every, obh, exact=False)
+        log(f"  10b vs phase 6: Y mean abs {w[0]:.5f} (bar < 0.02), UV mean abs {w[1]:.5f} (bar < 0.02), max "
+            f"{w[2]:.0f} (bar <= 2), gains rtol {w[3]:.3g} (bar 1e-5)")
+        log(f"== 10c. four gloo ranks, make_global_mesh(2, {SPACE}): two data rows of two ranks, two bands "
+            f"each; each row its own {half} frame sets")
+        _rank_lines("10c", r4, "10c", p6, smi)
+        _check_shard_indices("10c", r4, "10c", rows)
+        w = _check_4k("10c", r4, "10c", p6, rows_2x2, obh, exact=False)
+        log(f"  10c vs phase 6: Y mean abs {w[0]:.5f} (bar < 0.02), UV mean abs {w[1]:.5f} (bar < 0.02), max "
+            f"{w[2]:.0f} (bar <= 2), gains rtol {w[3]:.3g} (bar 1e-5); shard indices checked")
+        summary["10b"] = [r["10b"]["ms"] for r in r4]
+        summary["10c"] = [r["10c"]["ms"] for r in r4]
+
+        # 10d, 10e on two gloo ranks
+        r2, took = _launch(tmp, 2, "gloo", [dict(kind="small", name="10d"), dict(kind="ba", name="ba")],
+                           ring=ring_path)
+        log(f"== 10d. two gloo ranks, make_global_mesh(1, 2), two {DIST_SMALL}^2 fisheyes -> 512x256, f32, each "
+            f"option against the CUDA make_mesh(1, 2) output (launch with 10e: {took:.1f} s; {smi})")
+        phase_small_distributed(r2)
+        log(f"== 10e. bundle_adjust_ray_torch(mesh=make_global_mesh()) on 8c's ring matches, gloo ranks ({smi})")
+        _check_ba("10e, 2 ranks", r2, ba)
+        _check_ba("10e, 4 ranks", r4, ba)
+
+        # 10f: the port's multihost tool as a process on the card
+        log("== 10f. python -m octvr_tpu_torch.tools.multihost_stitch on the card, --backend gloo")
+        summary["10f"] = [phase_multihost_tool(procs, dpp, smi) for procs, dpp in DIST_TOOL]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary["seconds"] = time.time() - t0
+    summary["p6_ms"] = p6["ms"]
+    log(f"  phase 10 took {summary['seconds']:.1f} s")
+    return summary
+
+
+def phase_small_distributed(ranks):
+    """10d: each option's two-rank output against the CUDA
+    make_mesh(1, 2) ShardedMapper on the same frames: max <= 1, gains
+    rtol 1e-6."""
+    from octvr_tpu_torch.parallel import ShardedMapper, make_mesh
+
+    mt, sizes, frames = _small_dist_rig()
+    for label, kw in DIST_SMALL_OPTIONS:
+        sm = ShardedMapper(mt, sizes, make_mesh(1, 2, device="cuda"), **_small_dist_kw(kw))
+        out, g = sm.stitch_batch(frames)
+        want = out.cpu().numpy()
+        full = _assemble([r["10d"][label]["shards"] for r in ranks], want.shape, want.dtype, f"10d {label}")
+        err = float(np.abs(full.astype(np.float32) - want.astype(np.float32)).max())
+        g_want = g[0].cpu().numpy()
+        g_rel = max(float(np.max(np.abs(r["10d"][label]["gains"] - g_want) / np.abs(g_want))) for r in ranks)
+        a = ranks[0]["10d"][label]
+        log(f"  {label:26s} max abs err {err:.4g} (bar <= 1), gains rtol {g_rel:.3g} (bar 1e-6); split "
+            f"{a['split']}, sliced {a['sliced']}; rank 0 launches {a['launches']}")
+        if not (err <= 1 and g_rel <= 1e-6):
+            raise AssertionError(f"10d {label}: two ranks disagree with make_mesh(1, 2)")
+
+
+def phase_multihost_tool(procs, dpp, smi):
+    """10f: the port's multihost_stitch at the JAX test's shape, as a
+    process on the card; parity_ok required.  Returns its frames/s."""
+    args = ["--procs", str(procs), "--devices-per-proc", str(dpp), "--cam", "96", "--canvas", "192x96",
+            "--blend", "32", "--iters", "3", "--backend", "gloo", "--timeout", str(DIST_LIMIT)]
+    t0 = time.time()
+    p = subprocess.run([sys.executable, "-m", "octvr_tpu_torch.tools.multihost_stitch", *args], capture_output=True,
+                       text=True, timeout=DIST_LIMIT + 30, cwd=ROOT)
+    took = time.time() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"multihost_stitch {' '.join(args)} exited {p.returncode}:\n{p.stderr[-3000:]}")
+    s = json.loads(p.stdout.strip().splitlines()[-1])
+    log(f"  --procs {procs} --devices-per-proc {dpp}: parity_ok {s['parity_ok']}, parity {s['parity']}, "
+        f"{s['frames_per_s']} frames/s ({s['ms_per_step']} ms/step, ranks sharing one card; {took:.1f} s; {smi})")
+    if not (s["parity_ok"] and s["device"].startswith("cuda") and s["backend"] == "gloo"):
+        raise AssertionError(f"multihost_stitch: {s}")
+    return s["frames_per_s"]
+
+
+def distributed_only(smi):
+    """``--distributed``: phase 10 alone, with its inputs made here: the
+    kernels built, phase 6's plan and reference outputs, 8c's ring and
+    8d's one-rank result."""
+    from octvr_tpu_torch.registration import register_images
+    from octvr_tpu_torch.template import compile_rig
+
+    phase_build()
+    mt = compile_rig(six_cam_rig(), CANVAS_W, CANVAS_H)
+    mt.create_masks()
+    sets = make_frame_sets(SHARD_ITERS)
+    host, _ = build_sharded_4k(mt)
+    sm, _ = sharded_on_card(host)
+    one = [[f[None] for f in fs] for fs in sets]
+    sm.stitch_batch(one[0])  # timed after one call, as phase 6 and the ranks are
+    enqueue, ms = _timed_frames(sm, one)
+    p6 = sharded_reference(sm, sets)
+    p6.update(ms=ms, enqueue=enqueue)
+    del sm, sets, one
+    images = _render_ring(REG_N, REG_STEP, REG_F, REG_W, REG_H)
+    res = register_images(images, device="cuda", ba="ray", conf_thresh=0.5, max_features=REG_FEATURES)
+    ba = phase_bundle(res, smi)
+    dist = phase_distributed(host, p6, ba, smi)
+    log(f"distributed (phase 10, {dist['seconds']:.1f} s): {json.dumps({k: v for k, v in dist.items()})}")
+
+
 _KERNEL_CLASSES = (
     ("remap (csrc/remap.cu)", ("remap_kernel", "remap_frames_kernel")),
     ("matmul (pyramid, pooling)", ("gemm", "xmma", "cutlass")),
@@ -2756,13 +3293,17 @@ def profile(stitch, frame_sets, ms_frame):
 
 def main(argv):
     t_start = time.time()
+    if len(argv) == 3 and argv[0] == "--rank":
+        return rank_main(argv[1], int(argv[2]))
     smi = phase_env()
     if len(argv) == 2 and argv[0] == "--time-remap":
         return time_remap(argv[1])
     if len(argv) == 2 and argv[0] == "--time-taps":
         return time_taps(argv[1])
+    if argv == ["--distributed"]:
+        return distributed_only(smi)
     if argv:
-        raise SystemExit(f"usage: chip_smoke.py [--time-remap ROOT | --time-taps ROOT], got {argv}")
+        raise SystemExit(f"usage: chip_smoke.py [--time-remap ROOT | --time-taps ROOT | --distributed], got {argv}")
     phase_build()
     err_small = phase_kernel_small()
 
@@ -2793,7 +3334,6 @@ def main(argv):
     batch = phase_stitch_batch(mapper, frame_sets, main_path["ms_frame"])
     sharded = phase_sharded(host, t_host, frame_sets, main_path)
     sharded_sm = sharded.pop("sm")
-    del host
     sharded_rgb = phase_sharded_rgb(host_rgb, t_host_rgb, frame_sets, rgb)
     t7 = time.time()
     stream = phase_stream_4k(mapper, frame_sets, main_path)
@@ -2808,6 +3348,8 @@ def main(argv):
     log(f"  phase 7 took {time.time() - t7:.1f} s")
     registration = phase_registration(smi)
     offline = phase_offline_cli(mt, frame_sets, registration, smi)
+    distributed = phase_distributed(host, sharded.pop("p6"), registration["ba"], smi)
+    del host
 
     log("== summary")
     log(f"total run time {time.time() - t_start:.1f} s")
@@ -2831,6 +3373,11 @@ def main(argv):
         f"{live['stream']:.2f}; {live['done']}); gain_and_remap at 4K card {offline['gain_and_remap']['card']:.2f} "
         f"s, CPU {offline['gain_and_remap']['cpu']:.2f} s (at once); Stitcher graphcut "
         + ", ".join(f"{k} {v:.3f}" for k, v in offline["stitcher"].items()) + " s")
+    log(f"distributed path (phase 10, {distributed['seconds']:.1f} s, ranks sharing one card: contention, not "
+        f"scaling): ms/frame 10a one NCCL rank {distributed['10a']:.3f}; 10b four gloo ranks "
+        + ", ".join(f"{v:.3f}" for v in distributed["10b"]) + "; 10c (2, 2) grid "
+        + ", ".join(f"{v:.3f}" for v in distributed["10c"]) + f"; 10f multihost_stitch frames/s "
+        + ", ".join(f"{v}" for v in distributed["10f"]) + f"; phase 6 {distributed['p6_ms']:.3f}")
     log("4K remap launches: device ms (share of bound); call ms; grid_sample device ms")
     for key, t in times.items():
         log(f"  {key:22s} {t['ms']:.5f} ({t['bound_ms'] / t['ms']:.3f}); call {t['call_ms']:.5f}; "

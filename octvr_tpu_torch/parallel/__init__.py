@@ -1,6 +1,23 @@
-"""The band-sharded stitcher: ``S`` canvas bands with halos, all in one
-process on one device (parallel/sharded.py)."""
+"""The band-sharded stitcher: ``S`` canvas bands with halos, in one
+process or spread over the ranks of a torch.distributed mesh
+(parallel/sharded.py)."""
 
-from .sharded import BandMesh, LocalBands, ShardedMapper, ShardedPlan, build_sharded_plan, make_mesh
+from .sharded import (
+    BandMesh,
+    DistributedBands,
+    LocalBands,
+    ShardedMapper,
+    ShardedPlan,
+    build_sharded_plan,
+    make_mesh,
+)
 
-__all__ = ["BandMesh", "LocalBands", "ShardedMapper", "ShardedPlan", "build_sharded_plan", "make_mesh"]
+__all__ = [
+    "BandMesh",
+    "DistributedBands",
+    "LocalBands",
+    "ShardedMapper",
+    "ShardedPlan",
+    "build_sharded_plan",
+    "make_mesh",
+]

@@ -5,12 +5,15 @@ own halo of recomputed rows.  Only two things ever cross bands: a sum of
 the exposure-gain statistics (the pairwise sums, or the block sums of
 the blocks gains), and a concatenation of the band-interior level-L
 Gaussian rows in the two-level multiband blend.  Every per-band
-constant is homogenized, so the bands' plans stack on a leading ``S``
-axis, and here all ``S`` bands run in one process on one device, with
-the band axis written out as the leading axis of every band tensor: the
-gain sum is a sum over it and the gather a concatenation along it
-(:class:`LocalBands`, the one object a distributed band group replaces).
-A band group costs about the launches of one band.
+constant is homogenized, so the bands' plans stack on a leading band
+axis, which every band tensor carries.  A process holds the bands
+``[band_lo, band_hi)`` of its mesh: all ``S`` of them on a
+:func:`make_mesh` mesh, whose band group (:class:`LocalBands`) sums over
+the band axis and concatenates along it; or its share of a data row of
+a ``torch.distributed`` mesh (runtime/distributed.py), whose band group
+(:class:`DistributedBands`) does the same and then one ``all_reduce`` or
+``all_gather`` over the row's ranks.  A band group costs about the
+launches of one band.
 
 Per frame set (packed YUV420P or NV12 frames):
 
@@ -38,6 +41,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from scipy.ndimage import distance_transform_edt
 
 from ..ops.color import merge_nv12, merge_yuv420p, planes_to_rgb_planar, rgb_planar_to_planes
@@ -55,6 +59,7 @@ from ..utils.device import resolve_device, tree_to
 
 __all__ = [
     "BandMesh",
+    "DistributedBands",
     "LocalBands",
     "ShardedMapper",
     "ShardedPlan",
@@ -65,8 +70,7 @@ __all__ = [
 
 class LocalBands:
     """The band group of ``S`` bands held in one process: band tensors
-    carry the bands on their leading axis.  A ``torch.distributed``
-    group of bands replaces this object and nothing else."""
+    carry the bands on their leading axis."""
 
     def __init__(self, n_space: int):
         self.size = n_space
@@ -81,15 +85,69 @@ class LocalBands:
         return torch.cat(x.unbind(0), dim=dim)
 
 
+class DistributedBands:
+    """The band group of a data row whose ``S`` bands are spread over
+    the ranks of the process group ``group``, each rank holding
+    ``band_hi - band_lo`` consecutive bands, in rank order: band tensors
+    carry this rank's bands on their leading axis.  gloo and NCCL both
+    take the tensors where they lie, on the CPU or the card."""
+
+    def __init__(self, group, band_lo: int, band_hi: int, S: int):
+        self.group = group
+        self.size = S
+        self.ranks = dist.get_world_size(group)
+        if self.ranks * (band_hi - band_lo) != S:
+            raise ValueError(
+                f"{self.ranks} ranks holding bands [{band_lo}, {band_hi}) each do not make {S} bands"
+            )
+
+    def sum(self, x):
+        """x [k, ...] for this rank's k bands -> [...], the sum over
+        every band of the row (one all_reduce)."""
+        y = x.sum(dim=0)
+        dist.all_reduce(y, group=self.group)
+        return y
+
+    def concat(self, x, dim: int):
+        """x [k, ...] for this rank's k bands -> every band's tensor of
+        the row concatenated along ``dim`` of one band's tensor, in band
+        order (one all_gather)."""
+        y = torch.cat(x.unbind(0), dim=dim).contiguous()
+        parts = [torch.empty_like(y) for _ in range(self.ranks)]
+        dist.all_gather(parts, y, group=self.group)
+        return torch.cat(parts, dim=dim)
+
+
 @dataclass(frozen=True)
 class BandMesh:
-    """One process holding ``n_space`` bands on one device; ``n_data``
-    splits a batch of frame sets into that many equal parts, as the JAX
-    mesh's 'data' axis does."""
+    """A process's place in a ('data', 'space') mesh: ``n_data`` data
+    rows of ``n_space`` bands, this process holding bands
+    ``[band_lo, band_hi)`` on ``device``.  From :func:`make_mesh`: one
+    process holds every band and every data row, and splits a batch of
+    frame sets into ``n_data`` equal parts as the JAX mesh's 'data' axis
+    does.  From runtime.distributed.make_global_mesh: the process is one
+    rank of data row ``data_index``, whose ranks ``group`` joins, and
+    ``ranks`` lists the mesh's ranks row by row, all of them joined by
+    ``mesh_group``."""
 
     n_data: int
     n_space: int
     device: torch.device
+    band_lo: int = 0
+    band_hi: Optional[int] = None  # None: n_space
+    data_index: int = 0
+    group: object = None  # None: every band in this process
+    ranks: tuple = ()
+    mesh_group: object = None
+
+    def __post_init__(self):
+        if self.band_hi is None:
+            object.__setattr__(self, "band_hi", self.n_space)
+
+    @property
+    def local_data(self) -> int:
+        """The data rows whose frame sets this process stitches."""
+        return self.n_data if self.group is None else 1
 
 
 def make_mesh(n_data: int, n_space: int, *, device="cuda") -> BandMesh:
@@ -178,6 +236,62 @@ class ShardedPlan:
     pool_cols_roi_uv: object = None  # {iw/2: [iw/2, iw/stride]}
     down_mats: dict = field(default_factory=dict)  # {n: [n/2, n]}
     up_mats: dict = field(default_factory=dict)  # {n: [2n, n]}
+    band_lo: int = 0  # the bands [band_lo, band_hi) of S this plan holds
+    band_hi: Optional[int] = None  # None: S
+
+    def __post_init__(self):
+        if self.band_hi is None:
+            self.band_hi = self.S
+
+    @property
+    def n_local(self) -> int:
+        """The bands this plan holds: the leading axis of its per-band
+        tables and of the band tensors."""
+        return self.band_hi - self.band_lo
+
+    def bands(self, lo: int, hi: int):
+        """The host plan of bands [lo, hi) of this whole host plan: every
+        per-band table cut to those bands; ``S`` and the geometry stay
+        global (a rank's share of a data row, moved to its device by
+        :meth:`to`)."""
+        if self.remap_groups or self.n_local != self.S:
+            raise ValueError("bands() cuts a whole host plan, before .to()")
+        if not 0 <= lo < hi <= self.S:
+            raise ValueError(f"bands [{lo}, {hi}) of {self.S}")
+
+        def cut(a):  # bands on the leading axis
+            return None if a is None else a[lo:hi]
+
+        def each(xs):  # a list of tables
+            return None if xs is None else [cut(a) for a in xs]
+
+        def rows(t):  # the output resize's row taps
+            return None if t is None else {k: cut(v) for k, v in t.items()}
+
+        return replace(
+            self,
+            band_lo=lo,
+            band_hi=hi,
+            roi_oy=cut(self.roi_oy),
+            src_row0=cut(self.src_row0),
+            remap=each(self.remap),
+            remap_uv=each(self.remap_uv),
+            coarse_row_idx=cut(self.coarse_row_idx),
+            coarse_row_idx_uv=cut(self.coarse_row_idx_uv),
+            union_row_mask=cut(self.union_row_mask),
+            union_row_mask_uv=cut(self.union_row_mask_uv),
+            feather_w=each(self.feather_w),
+            feather_w_uv=each(self.feather_w_uv),
+            weight_pyrs=None if self.weight_pyrs is None else [each(l) for l in self.weight_pyrs],
+            weight_pyrs_uv=None if self.weight_pyrs_uv is None else [each(l) for l in self.weight_pyrs_uv],
+            inv_band_weights=each(self.inv_band_weights),
+            inv_band_weights_uv=each(self.inv_band_weights_uv),
+            gm_i=cut(self.gm_i),
+            overlay_masks=cut(self.overlay_masks),
+            overlay_masks_uv=cut(self.overlay_masks_uv),
+            resize_v=rows(self.resize_v),
+            resize_v_uv=rows(self.resize_v_uv),
+        )
 
     def to(self, device):
         """Device copy: multiband constants in ``compute_dtype``, the rest
@@ -234,11 +348,11 @@ class ShardedPlan:
 
 
 def _src_blocks(plan):
-    """Per input, its number of source blocks: one per band when the
-    band slices start at different rows, else one that every band
-    reads."""
+    """Per input, its number of source blocks: one per band of the plan
+    when the band slices start at different rows, else one that every
+    band reads."""
     return [
-        plan.S if h < hw[0] and r is None else 1
+        plan.n_local if h < hw[0] and r is None else 1
         for h, hw, r in zip(plan.src_h, plan.in_sizes, plan.src_row0_static)
     ]
 
@@ -927,10 +1041,13 @@ class ShardedMapper:
     """Stitch batches of frame sets as ``S`` horizontal bands (the JAX
     ShardedMapper).
 
-    ``mesh`` (:func:`make_mesh`) gives the band count, the data split of
-    a batch and the device.  blend: > 0 multiband width, < 0 feather
-    border, 0 an averaged paste; enable_gain: False, True (pairwise
-    global gains) or "blocks"; out_format: "yuv420p" (packed band
+    ``mesh`` gives the band count, this process's bands, the data split
+    of a batch and the device: a :func:`make_mesh` mesh (every band in
+    this process) or a runtime.distributed.make_global_mesh one (this
+    rank's bands of its data row; it stitches its row's frame sets).
+    blend: > 0 multiband width, < 0 feather border, 0 an averaged
+    paste; enable_gain: False, True (pairwise global gains) or
+    "blocks"; out_format: "yuv420p" (packed band
     buffers, see :meth:`assemble_yuv`) or "rgb" (planar f32, rgb
     pipeline only); blend_dtype: "float32" or "bfloat16", None picks
     bfloat16 on CUDA and float32 on the CPU; pipeline: "yuv420", "rgb",
@@ -979,12 +1096,14 @@ class ShardedMapper:
             blend_dtype=blend_dtype, pipeline=pipeline, scale_output=scale_output,
             frame_format=frame_format, coarse_split=coarse_split, src_windows=src_windows,
         )
-        self._bind(host.to(mesh.device), mesh, out_format)
+        self._bind(host.bands(mesh.band_lo, mesh.band_hi).to(mesh.device), mesh, out_format)
 
     @classmethod
     def from_plan(cls, plan: ShardedPlan, mesh: BandMesh, out_format: str = "yuv420p"):
         """A ShardedMapper over a plan already on ``mesh.device``
-        (ShardedPlan.to, or parallel.convert.sharded_plan_from_jax)."""
+        (ShardedPlan.to, or parallel.convert.sharded_plan_from_jax) that
+        holds the mesh's bands (ShardedPlan.bands first on a rank of a
+        global mesh)."""
         if out_format not in ("yuv420p", "rgb") or (out_format == "rgb" and plan.pipeline != "rgb"):
             raise ValueError(f"out_format {out_format!r} on the {plan.pipeline} pipeline")
         self = cls.__new__(cls)
@@ -994,11 +1113,19 @@ class ShardedMapper:
     def _bind(self, plan: ShardedPlan, mesh: BandMesh, out_format: str):
         if mesh.n_space != plan.S:
             raise ValueError(f"mesh has {mesh.n_space} bands, the plan {plan.S}")
+        if (plan.band_lo, plan.band_hi) != (mesh.band_lo, mesh.band_hi):
+            raise ValueError(
+                f"the plan holds bands [{plan.band_lo}, {plan.band_hi}), this rank of the mesh "
+                f"[{mesh.band_lo}, {mesh.band_hi}): cut the host plan with ShardedPlan.bands"
+            )
         self.plan = plan
         self.mesh = mesh
         self.device = mesh.device
         self.out_format = out_format
-        self.group = LocalBands(plan.S)
+        if mesh.group is None:
+            self.group = LocalBands(plan.S)
+        else:
+            self.group = DistributedBands(mesh.group, mesh.band_lo, mesh.band_hi, plan.S)
         self._rows_cache = {}
         dev = self.device
         # per input, the source-row gather of each band's slice (packed
@@ -1037,8 +1164,8 @@ class ShardedMapper:
     # ------------------------------------------------------------ helpers
 
     def _rows(self, oy, c, H, h):
-        """Flat row index of a [S, c, h, .] window at per-band row
-        offsets ``oy`` in a [S, c, H, .] band tensor (cached: the offsets
+        """Flat row index of a [k, c, h, .] window at per-band row
+        offsets ``oy`` [k] in a [k, c, H, .] band tensor (cached: the offsets
         are plan constants)."""
         key = (oy.tobytes(), c, H, h)
         if key not in self._rows_cache:
@@ -1122,39 +1249,40 @@ class ShardedMapper:
         """Per size group one launch over its (input, band) pairs: the
         frames axis for ``frames``, else one frame.  parts: per input its
         source blocks [B, k, C, h, W].  Returns per input its windows
-        [B, S, C, hmax, iw], views of its group's output buffer."""
-        S, dtype = self.plan.S, self._remap_dtype()
+        [B, k, C, hmax, iw] for the plan's k bands, views of its group's
+        output buffer."""
+        k, dtype = self.plan.n_local, self._remap_dtype()
         out = [None] * len(parts)
         for idxs, group in zip(self.plan.group_idx, groups):
             src = concat_source([parts[i] for i in idxs], frames=True)
             if frames:
-                res = remap_apply_frames(src, group, dtype, run=S)
+                res = remap_apply_frames(src, group, dtype, run=k)
             else:
-                res = [o[None] for o in remap_apply(src[0], group, dtype, run=S)]
+                res = [o[None] for o in remap_apply(src[0], group, dtype, run=k)]
             for i, o in zip(idxs, res):
-                out[i] = o if S > 1 else o[:, None]
+                out[i] = o if k > 1 else o[:, None]
         return out
 
     # -------------------------------------------------------------- gains
 
     def _window_norm_grid(self, nrm, i):
-        """Input i's working-grid norms [S, hmax/st, iw/st] pasted into
-        each band's interior grid: [S, bh/st, Wp/st], the single-chip
+        """Input i's working-grid norms [k, hmax/st, iw/st] pasted into
+        each band's interior grid: [k, bh/st, Wp/st], the single-chip
         Mapper's global blocks."""
         plan = self.plan
         x0 = plan.rois[i][0]
         st = plan.stride
-        grid = torch.zeros((plan.S, 1, plan.ext // st, plan.Wp // st), dtype=torch.float32, device=nrm.device)
+        grid = torch.zeros((plan.n_local, 1, plan.ext // st, plan.Wp // st), dtype=torch.float32, device=nrm.device)
         self._paste_add(grid, nrm[:, None], _win_oy(plan, i, div=st), x0 // st)
         gh = plan.bh // st
         return grid[:, 0, plan.ghalo : plan.ghalo + gh]
 
     def _norm_rgb(self, w, i):
-        """RGB L2 norm of input i's pooled windows [S, 3, hmax, iw]."""
+        """RGB L2 norm of input i's pooled windows [k, 3, hmax, iw]."""
         plan = self.plan
         st = plan.stride
         x = _pool_pow2(w.float().flatten(0, 1), st, col_mat=(plan.pool_cols_roi[plan.rois[i][1]] if st > 1 else None))
-        x = x.unflatten(0, (plan.S, 3))
+        x = x.unflatten(0, (plan.n_local, 3))
         return self._window_norm_grid(torch.sqrt(torch.sum(x * x, dim=1)), i)
 
     def _norm_yuv(self, wy, wuv, i):
@@ -1169,7 +1297,7 @@ class ShardedMapper:
             uv = _pool_pow2(uvf, st // 2, col_mat=(plan.pool_cols_roi_uv[iw // 2] if st > 2 else None))
         else:  # stride 1: nearest 2x chroma upsample onto the luma grid
             uv = uvf.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)[:, :hmax, :iw]
-        uv = uv.unflatten(0, (plan.S, 2))
+        uv = uv.unflatten(0, (plan.n_local, 2))
         return self._window_norm_grid(yuv_rgb_norm(y, uv[:, 0], uv[:, 1]), i)
 
     def _solve_band_gains(self, norms):
@@ -1190,15 +1318,15 @@ class ShardedMapper:
         solves the same lattice (sharded.py:1537 of the JAX package)."""
         plan = self.plan
         gbp = plan.gain_blocks
-        n, S = gbp.num_images, plan.S
+        n, S, k = gbp.num_images, plan.S, plan.n_local
         Hc, Wc = gbp.canvas
         gh, gw = norms[0].shape[-2:]
         block, nby, nbx = gbp.block, gbp.nby, gbp.nbx
-        nm = torch.stack(norms, dim=1)  # [S, n, gh, gw]
+        nm = torch.stack(norms, dim=1)  # [k, n, gh, gw]
         nm = nm[..., :Wc] if gw >= Wc else torch.nn.functional.pad(nm, (0, Wc - gw))
-        canvas = nm.new_zeros((S, n, S, gh, Wc))
-        band = torch.arange(S, device=nm.device)
-        canvas[band, :, band] = nm  # band s owns working rows [s*gh, (s+1)*gh)
+        canvas = nm.new_zeros((k, n, S, gh, Wc))
+        band = torch.arange(k, device=nm.device)
+        canvas[band, :, plan.band_lo + band] = nm  # band s owns working rows [s*gh, (s+1)*gh)
         canvas = canvas.flatten(2, 3)
         if S * gh < Hc:
             canvas = torch.nn.functional.pad(canvas, (0, 0, 0, Hc - S * gh))
@@ -1206,7 +1334,7 @@ class ShardedMapper:
         require_full_f32()
         sums = torch.einsum(
             "siyaxb,jyaxb->syxij",
-            canvas.reshape(S, n, nby, block, nbx, block),
+            canvas.reshape(k, n, nby, block, nbx, block),
             gbp.cover.reshape(n, nby, block, nbx, block),
         )
         off = 1.0 - torch.eye(n, dtype=torch.float32, device=nm.device)
@@ -1215,14 +1343,15 @@ class ShardedMapper:
 
     def _lattice_window_taps(self, i, div):
         """Bilinear taps of the gain lattice over input i's window in
-        every band (div 1: luma or RGB grid, 2: chroma grid, where the
-        lattice scale doubles): (y0, y1, fy [S, h, 1], x0, x1, fx [1, w])."""
+        each of the plan's k bands (div 1: luma or RGB grid, 2: chroma
+        grid, where the lattice scale doubles): (y0, y1, fy [k, h, 1], x0,
+        x1, fx [1, w])."""
         plan = self.plan
         gbp = plan.gain_blocks
         dev = self.device
         x0, iw, hmax = plan.rois[i]
         oy = np.asarray(_win_oy(plan, i, div=div))
-        row_top = np.arange(plan.S) * (plan.bh // div) - plan.halo // div + oy
+        row_top = np.arange(plan.band_lo, plan.band_hi) * (plan.bh // div) - plan.halo // div + oy
         scale = div / plan.stride
         h, w = hmax // div, iw // div
         rows = torch.from_numpy(row_top.astype(np.int64)).to(dev)[:, None] + torch.arange(h, device=dev)
@@ -1237,7 +1366,7 @@ class ShardedMapper:
         return y0, y1, fy, x0i, x1i, fx
 
     def _sample_lattice_window(self, lattice, i, div=1):
-        """Input i's gain map over its window in every band, [S, h, w]
+        """Input i's gain map over its window in every band, [k, h, w]
         (gain_blocks.sample_block_lattice at per-band row offsets)."""
         y0, y1, fy, x0, x1, fx = self._lattice_taps[i, div]
         g = lattice[..., i]
@@ -1552,15 +1681,18 @@ class ShardedMapper:
     def stitch_batch(self, frames, gains=None):
         """frames: per input (then per overlay input) a uint8
         [B, Hi*3/2, Wi] stack (B divisible by the mesh's data size), or
-        one stacked [B, n, Hi*3/2, Wi] when every size is equal.
-        ``gains`` ([B, n] f32) replaces the solved pairwise gains.
-        Returns (out, gains f32 [B, n]) on the mapper's device; out is
-        uint8 [B, S*obh*3/2, oW] (per band packed YUV420P or NV12
-        buffers stacked along rows, see :meth:`assemble_yuv`), or f32
-        [B, 3, S*obh, oW] for ``out_format="rgb"``."""
+        one stacked [B, n, Hi*3/2, Wi] when every size is equal; on a
+        rank of a global mesh, its data row's frame sets.  ``gains``
+        ([B, n] f32) replaces the solved pairwise gains.  Returns (out,
+        gains f32 [B, n]) on the mapper's device; out is uint8
+        [B, k*obh*3/2, oW] for the process's k bands (per band packed
+        YUV420P or NV12 buffers stacked along rows, see
+        :meth:`assemble_yuv` and runtime.distributed.local_output_shards),
+        or f32 [B, 3, k*obh, oW] for ``out_format="rgb"``; the gains are
+        the same on every band of a data row."""
         bufs = self._frames_to_device(frames)
         B = bufs[0].shape[0]
-        nd = self.mesh.n_data
+        nd = self.mesh.local_data
         if B % nd:
             raise ValueError(f"batch {B} is not divisible by the mesh's data size {nd}")
         if gains is not None:

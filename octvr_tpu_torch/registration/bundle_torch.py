@@ -20,9 +20,17 @@ Host syncs: one per LM iteration, which reads the loop's condition
 (the stall count and lambda) as ``lax.while_loop`` evaluates it on the
 device (and one more read when the condition ends a phase), plus two per
 phase for the result (x, the cost).  ``stats``, when given,
-receives {"iters": [phase 1, phase 2], "syncs": total}.  The JAX
-function's ``mesh=`` variant (matches sharded over devices, the normal
-equations summed across them) is not ported.
+receives {"iters": [phase 1, phase 2], "syncs": total}.
+
+``mesh=`` (a mesh of runtime.distributed.make_global_mesh) shards the
+matches over the mesh's ranks, as the JAX function's ``mesh=`` shards
+them over devices: the matches are padded to the rank count with rows
+whose two ends are the same camera and pixel (zero residual, Jacobian
+blocks that cancel), each rank takes a contiguous share, and JtJ, Jtr
+and the cost are summed over the ranks (``all_reduce``) before any use.
+Every LM decision is read from those sums, so every rank takes the same
+branch; the host syncs stay one per iteration.  A one-process mesh
+(``make_mesh``) computes what ``mesh=None`` computes.
 
 No TF32: every product is written as multiply-adds, and the one solve
 per iteration is an LU solve of a [4n, 4n] system.
@@ -30,6 +38,7 @@ per iteration is an LU solve of a [4n, 4n] system.
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import jacfwd, vmap
 
 from ..utils.device import resolve_device
@@ -102,10 +111,20 @@ def _cost(x, cam_i, cam_j, p1, p2, sizes, n):
     return torch.sum(r * r)
 
 
-def _levmar(x, free, args, n, max_iter):
+def _levmar(x, free, args, n, max_iter, total):
     """The JAX function's LM loop: (x, cost, iterations, host reads of
-    the loop condition)."""
-    cost = _cost(x, *args, n)
+    the loop condition).  ``total`` sums a tensor over the ranks that
+    share the matches (in place)."""
+
+    def norm_eqs(x):
+        JtJ, Jtr = _norm_eqs(x, *args, n)
+        both = total(torch.cat([JtJ.reshape(-1), Jtr]))  # one collective
+        return both[: JtJ.numel()].view_as(JtJ), both[JtJ.numel() :]
+
+    def cost_of(x):
+        return total(_cost(x, *args, n))
+
+    cost = cost_of(x)
     lam = torch.tensor(1e-3, dtype=x.dtype, device=x.device)
     stall = torch.zeros((), dtype=torch.int64, device=x.device)
     fm = free.to(x.dtype)
@@ -116,14 +135,14 @@ def _levmar(x, free, args, n, max_iter):
         reads += 1
         if not (go_stall < 8 and go_lam < 1e12):
             break
-        JtJ, Jtr = _norm_eqs(x, *args, n)
+        JtJ, Jtr = norm_eqs(x)
         # lock params outside the free set: unit diagonal, zero gradient
         A = JtJ * fm[:, None] * fm[None, :] + lock
         g = Jtr * fm
         damped = A + lam * torch.diag(torch.diagonal(A) + 1e-9)
         delta = torch.linalg.solve_ex(damped, -g[:, None])[0][:, 0]
         xn = x + delta * fm
-        cn = _cost(xn, *args, n)
+        cn = cost_of(xn)
         accept = cn < cost
         x = torch.where(accept, xn, x)
         cost = torch.where(accept, cn, cost)
@@ -133,13 +152,39 @@ def _levmar(x, free, args, n, max_iter):
     return x, cost, it, reads
 
 
+def _rank_share(data, mesh):
+    """(cam_i, cam_j, p1, p2) of this rank's share of the matches padded
+    to the mesh's rank count (bundle_jax.py:153-169), and the function
+    that sums a tensor over the mesh's ranks in place."""
+    m = len(data.cam_i)
+    cols = (data.cam_i, data.cam_j, data.p1.astype(np.float32), data.p2.astype(np.float32))
+    if mesh is None or mesh.mesh_group is None:
+        return cols, lambda x: x
+    ranks = [r for row in mesh.ranks for r in row]
+    share = -(-m // len(ranks))
+    pad = share * len(ranks)
+    cam_i, cam_j = np.zeros(pad, np.int64), np.zeros(pad, np.int64)
+    p1, p2 = np.zeros((pad, 2), np.float32), np.zeros((pad, 2), np.float32)
+    cam_i[:m], cam_j[:m], p1[:m], p2[:m] = cols
+    # padding rows: both ends the same camera and pixel
+    cam_j[m:], p2[m:] = cam_i[m:], p1[m:]
+    lo = ranks.index(dist.get_rank()) * share
+
+    def total(x):
+        dist.all_reduce(x, group=mesh.mesh_group)
+        return x
+
+    return tuple(a[lo : lo + share] for a in (cam_i, cam_j, p1, p2)), total
+
+
 def bundle_adjust_ray_torch(
-    features, matches, cameras, conf_thresh=1.0, max_iter=60, *, device="cuda", stats=None
+    features, matches, cameras, conf_thresh=1.0, max_iter=60, mesh=None, *, device="cuda", stats=None
 ):
     """Drop-in alternative to bundle_adjust_ray (the numpy f64 path): the
-    camera-block LM on ``device`` ("cuda" without a card raises), in f32.
+    camera-block LM on ``device`` ("cuda" without a card raises), in f32;
+    with ``mesh`` on ``mesh.device``, the matches sharded over its ranks.
     Returns (cameras, rms)."""
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     n = len(cameras)
     data = BundleData.from_matches(features, matches, conf_thresh)
     m = len(data.cam_i)
@@ -149,11 +194,12 @@ def bundle_adjust_ray_torch(
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
 
+    (cam_i, cam_j, p1, p2), total = _rank_share(data, mesh)
     args = (
-        t(data.cam_i, torch.int64),
-        t(data.cam_j, torch.int64),
-        t(data.p1.astype(np.float32)),
-        t(data.p2.astype(np.float32)),
+        t(cam_i, torch.int64),
+        t(cam_j, torch.int64),
+        t(p1),
+        t(p2),
         t(data.sizes.astype(np.float32)),
     )
     x = np.zeros(n * 4, dtype=np.float32)
@@ -166,7 +212,7 @@ def bundle_adjust_ray_torch(
     free_masks[0][0::4] = False
     cost, iters, syncs = None, [], 0
     for free in free_masks:
-        xt, ct, it, reads = _levmar(t(x), t(free, torch.bool), args, n, max_iter)
+        xt, ct, it, reads = _levmar(t(x), t(free, torch.bool), args, n, max_iter, total)
         x = xt.cpu().numpy().astype(np.float64)
         cost = float(ct)
         iters.append(it)

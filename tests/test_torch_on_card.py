@@ -4,7 +4,8 @@ the frames kernel against one-frame launches; stacked or concat
 sources; a CUDA-graph replay) and the
 three kernels of the MXU-taps probe (kernel 8) against their plain
 torch versions, and the port's Mapper and ShardedMapper (every option
-group) on the card against the port on the CPU.  They carry the
+group) on the card against the port on the CPU, and the band group
+across two gloo ranks that share the card.  They carry the
 ``cuda`` marker and skip without a card.
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -544,6 +545,24 @@ def test_pipeline_sharded_on_card(cuda_device):
         out, _ = sm.stitch_batch([torch.from_numpy(np.stack(x)).to(cuda_device) for x in zip(*batch)])
         for b in range(min(2, 5 - b0)):
             assert np.array_equal(got[b0 + b][0], sm.assemble_yuv(out[b]).cpu().numpy())
+
+
+def test_distributed_bands_on_card(cuda_device, tmp_path):
+    """Two gloo ranks sharing the card, two bands each: DistributedBands'
+    sum and concat of CUDA tensors (an all_reduce and an all_gather of
+    tensors that stay on the card) equal LocalBands' on all four bands."""
+    from octvr_tpu_torch.parallel import LocalBands
+    from torch_dist_fixtures import launch
+
+    x = np.random.default_rng(5).standard_normal((4, 3, 6, 10)).astype(np.float32)
+    res = launch(tmp_path, 2, [dict(kind="bands", name="bands", S=4, x=x, dim=1)], device="cuda")["bands"]
+    local = LocalBands(4)
+    xt = torch.from_numpy(x).to(cuda_device)
+    want_sum, want_cat = local.sum(xt).cpu().numpy(), local.concat(xt, 1).cpu().numpy()
+    for r in res:
+        assert r["on"].startswith("cuda")
+        np.testing.assert_allclose(r["sum"], want_sum, rtol=1e-6, atol=1e-6)
+        assert np.array_equal(r["concat"], want_cat)
 
 
 def test_map_cli_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch, capfd):

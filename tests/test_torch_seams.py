@@ -250,9 +250,7 @@ NO_COUNTERPART = {
     "ops.pallas_remap": "the TPU remap kernels and their tile plans: replaced by csrc/remap.cu "
     "(ROADMAP, 'Do not port': fan_chunk, choose_patches, pallas_remap_plan, merge_remap_plans)",
     "utils.pytree": "JAX pytree registration, which torch has no use for",
-    "runtime.distributed": "ROADMAP item 19c, the one module left to port",
-    "registration.bundle_jax": "the JAX LM; the port's is registration/bundle_torch.py, and its mesh= "
-    "variant is ROADMAP item 19c",
+    "registration.bundle_jax": "the JAX LM; the port's is registration/bundle_torch.py, mesh= included",
 }
 # names of a ported module's __all__ that the port leaves out on purpose
 EXEMPT_NAMES = {

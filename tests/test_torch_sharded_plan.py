@@ -319,7 +319,8 @@ def test_port_imports_no_jax():
             "octvr_tpu_torch.cli.dump", "octvr_tpu_torch.cli.gain_and_remap", "octvr_tpu_torch.cli.live",
             "octvr_tpu_torch.cli.console", "octvr_tpu_torch.cli.sinks", "octvr_tpu_torch.cli.inputs",
             "octvr_tpu_torch.template.graphcut", "octvr_tpu_torch.template.morph",
-            "octvr_tpu_torch.stitch.timelapser"} <= set(mods)
+            "octvr_tpu_torch.stitch.timelapser", "octvr_tpu_torch.runtime.distributed",
+            "octvr_tpu_torch.tools.multihost_stitch"} <= set(mods)
     assert {f"octvr_tpu_torch.registration.{m}" for m in (
         "autocalib", "estimators", "bundle", "wave", "features", "blobs", "matchers",
         "bundle_torch", "stitcher", "convert")} | {"octvr_tpu_torch.registration"} <= set(mods)
