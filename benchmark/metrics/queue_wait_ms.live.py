@@ -1,0 +1,9 @@
+"""Median over the live window's sets of the ms each waited in the
+pipeline's queues: the self time of its ``pipeline.set`` span, push to
+pop less its upload, dispatch and drain (the port's recorder)."""
+
+from benchmark.spans import self_ms
+
+
+def read(rec):
+    return self_ms(rec, "pipeline.set")

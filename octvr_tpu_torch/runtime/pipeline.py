@@ -40,6 +40,14 @@ Multiple outputs (multi-region stereo layouts) are one mapper each with
 gain sharing across outputs (gain_modes semantics, async.hpp:79:
 -1 = off, k == own index -> solve, k != own -> copy output k's gains,
 device to device).
+
+Spans (``timer.RECORDER``): ``push()`` gives each set an id, in push
+order, and opens its ``pipeline.set``, which the ``pop()`` returning
+the set closes; the set's ``pipeline.upload``, ``pipeline.dispatch``
+(with the mappers' ``mapper.*`` spans inside) and ``pipeline.drain``
+are its children, so that its self time is its wait in the queues.  A
+sharded batch's dispatch and drain are children of each of its sets.
+The stage spans' totals are what ``stats()`` and the timers print.
 """
 
 import queue
@@ -54,10 +62,11 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .timer import FpsMeter
+from .timer import RECORDER, FpsMeter
 
 BUF_SIZE = 3  # frame sets in flight, and slots in each ring (async.cpp:261)
 UPLOAD_WORKERS = 2  # frame sets staged into pinned slots at once (async.cpp:263-309)
+STAGES = ("upload", "dispatch", "drain")
 
 __all__ = ["AsyncMultiMapper", "BUF_SIZE", "UPLOAD_WORKERS"]
 
@@ -169,15 +178,15 @@ class AsyncMultiMapper:
         self._out_q = queue.Queue(maxsize=BUF_SIZE)
         self.fps = FpsMeter()
         # per-stage phase timers, the mapper.cpp:206-318 / timer.cpp role:
-        # host-side ms per stage, printed every timer_interval frames
+        # host-side ms per stage (this pipeline's spans' totals), printed
+        # every timer_interval frames
+        self._scope = RECORDER.new_id()
         self._timers_on = timers
         self._timer_interval = max(1, timer_interval)
-        self._stage_ms = {"upload": 0.0, "dispatch": 0.0, "drain": 0.0}
+        self._timer_mark = self._stage_ns()
         self._stage_n = 0
         self._stats_lock = threading.Lock()
-        self._totals = dict.fromkeys(
-            ("upload", "dispatch", "drain", "h2d_ms", "h2d_bytes", "d2h_ms", "d2h_bytes"), 0.0
-        )
+        self._totals = dict.fromkeys(("h2d_ms", "h2d_bytes", "d2h_ms", "d2h_bytes"), 0.0)
         self._pool = ThreadPoolExecutor(max_workers=UPLOAD_WORKERS, thread_name_prefix="octvr-upload")
         self._threads = [
             threading.Thread(target=self._guard, args=(self._run_upload, self._up_q), daemon=True),
@@ -197,11 +206,24 @@ class AsyncMultiMapper:
             stack.enter_context(torch.cuda.stream(stream))
         return stack
 
-    def _add(self, key, value, stage=False):
+    def _add(self, key, value):
         with self._stats_lock:
             self._totals[key] += value
-            if stage:
-                self._stage_ms[key] += value
+
+    def _span(self, stage, parent):
+        """The set ``parent``'s span of ``stage`` on this thread."""
+        return RECORDER.span(f"pipeline.{stage}", parent=parent, scope=self._scope)
+
+    def _also_under(self, stage, t0, t1, sets):
+        """The stage's work of [t0, t1], done once for a batch, recorded
+        again under each further set of it."""
+        for sp in sets:
+            RECORDER.record(f"pipeline.{stage}", t0, t1, sp)
+
+    def _stage_ns(self):
+        """This pipeline's host ns in each stage so far."""
+        t = RECORDER.totals(self._scope)
+        return {s: t.get(f"pipeline.{s}", (0, 0))[1] for s in STAGES}
 
     def _guard(self, run, downstream):
         """Runs a stage; on an exception, records it and passes it
@@ -259,17 +281,16 @@ class AsyncMultiMapper:
         """``frames`` with None in place of those already on the device."""
         return [None if _is_device_tensor(f, self.device) else f for f in frames]
 
-    def _upload_one(self, frames, ready, slot):
-        t0 = time.perf_counter()
-        if slot is not None:
-            host = self._host_frames(frames)
-            with self._on(self._h2d):
-                self._stage_set(slot, host)
-            frames = [f if h is None else d for f, h, d in zip(frames, host, slot.dev)]
-        elif not self._cuda:
-            frames = [f if isinstance(f, torch.Tensor) else torch.from_numpy(np.array(f)) for f in frames]
-        self._add("upload", (time.perf_counter() - t0) * 1e3, stage=True)
-        return frames, ready, slot
+    def _upload_one(self, frames, ready, slot, set_span):
+        with self._span("upload", set_span):
+            if slot is not None:
+                host = self._host_frames(frames)
+                with self._on(self._h2d):
+                    self._stage_set(slot, host)
+                frames = [f if h is None else d for f, h, d in zip(frames, host, slot.dev)]
+            elif not self._cuda:
+                frames = [f if isinstance(f, torch.Tensor) else torch.from_numpy(np.array(f)) for f in frames]
+        return frames, ready, slot, set_span
 
     def _get_slot(self):
         while True:
@@ -290,17 +311,17 @@ class AsyncMultiMapper:
             if isinstance(item, _Stop):
                 self._up_q.put(_STOP)
                 return
-            frames, ready = item
+            frames, ready, set_span = item
             use_slot = self._cuda and any(f is not None for f in self._host_frames(frames))
             slot = self._get_slot() if use_slot else None
-            self._up_q.put(self._pool.submit(self._upload_one, frames, ready, slot))
+            self._up_q.put(self._pool.submit(self._upload_one, frames, ready, slot, set_span))
 
     # ------------------------------------------------------------ stitch
 
     def _take(self, fut):
         """The uploaded set, ordered on the compute stream after its
         copies and after the pushing thread's work on device frames."""
-        frames, ready, slot = fut.result()
+        frames, ready, slot, set_span = fut.result()
         if self._cuda:
             if slot is not None:
                 self._compute.wait_event(slot.copied)
@@ -309,7 +330,7 @@ class AsyncMultiMapper:
                 for f in frames:
                     if slot is None or all(f is not d for d in slot.dev):
                         f.record_stream(self._compute)
-        return frames, slot
+        return frames, slot, set_span
 
     def _release(self, slots):
         """A done event on the compute stream after the stitch: it guards
@@ -335,14 +356,21 @@ class AsyncMultiMapper:
                 outs[k], gains[k] = stitch(self.mappers[k], frames, gains[mode])
         return outs
 
-    def _dispatch_sharded(self, batch, nreal):
-        """One stitch_batch over ``batch`` (per input [B, ...]), the rows
-        past ``nreal`` padded by repeating the last real set."""
+    def _dispatch_sharded(self, batch, sets, timed=None):
+        """One stitch_batch over ``batch`` (per input [B, ...]) for the
+        sets ``sets``, the rows past theirs padded by repeating the last
+        real set; the flight queue's item.  It runs inside the dispatch
+        span of the set ``timed`` (of none at the end of the stream) and
+        is recorded again under each other set."""
+        t0 = time.perf_counter_ns()
+        nreal = len(sets)
         for b in range(nreal, self._data_batch):
             for x in batch:
                 x[b].copy_(x[nreal - 1])
         outs = self._stitch_outputs(lambda m, f, g: m.stitch_batch(f, gains=g), batch)
-        self._flight_q.put((outs, nreal, self._release([])))
+        item = (outs, sets, self._release([]))
+        self._also_under("dispatch", t0, time.perf_counter_ns(), [sp for sp in sets if sp is not timed])
+        return item
 
     def _run_stitch(self):
         with self._on(self._compute if self._cuda else None):
@@ -359,38 +387,37 @@ class AsyncMultiMapper:
                 return
             if self._forward(fut, self._flight_q):
                 return
-            frames, slot = self._take(fut)
-            t1 = time.perf_counter()
-            outs = self._stitch_outputs(lambda m, f, g: m.stitch(f, gains=g), frames)
-            done = self._release([] if slot is None else [slot])
-            self._add("dispatch", (time.perf_counter() - t1) * 1e3, stage=True)
-            self._flight_q.put((outs, 1, done))
+            frames, slot, set_span = self._take(fut)
+            with self._span("dispatch", set_span):
+                outs = self._stitch_outputs(lambda m, f, g: m.stitch(f, gains=g), frames)
+                done = self._release([] if slot is None else [slot])
+            self._flight_q.put((outs, [set_span], done))
 
     def _stitch_sharded(self):
         B = self._data_batch
-        batch, nreal = None, 0
+        batch, sets = None, []
         while True:
             fut = self._up_q.get()
             if isinstance(fut, _Stop):
-                if nreal:
-                    self._dispatch_sharded(batch, nreal)
+                if sets:
+                    self._flight_q.put(self._dispatch_sharded(batch, sets))
                 self._flight_q.put(_STOP)
                 return
             if self._forward(fut, self._flight_q):
                 return
-            frames, slot = self._take(fut)
-            t1 = time.perf_counter()
-            if nreal == 0:
-                batch = [torch.empty((B,) + tuple(f.shape), dtype=f.dtype, device=f.device) for f in frames]
-            for x, f in zip(batch, frames):
-                x[nreal].copy_(f)
-            nreal += 1
-            if slot is not None:  # free the slot once copied: B may exceed the ring
-                self._release([slot])
-            if nreal == B:
-                self._dispatch_sharded(batch, nreal)
-                batch, nreal = None, 0
-            self._add("dispatch", (time.perf_counter() - t1) * 1e3, stage=True)
+            frames, slot, set_span = self._take(fut)
+            with self._span("dispatch", set_span):
+                if not sets:
+                    batch = [torch.empty((B,) + tuple(f.shape), dtype=f.dtype, device=f.device) for f in frames]
+                for x, f in zip(batch, frames):
+                    x[len(sets)].copy_(f)
+                sets.append(set_span)
+                if slot is not None:  # free the slot once copied: B may exceed the ring
+                    self._release([slot])
+                item = self._dispatch_sharded(batch, sets, timed=set_span) if len(sets) == B else None
+            if item is not None:  # out of the span: the drain may start on it at once
+                self._flight_q.put(item)
+                batch, sets = None, []
 
     # ------------------------------------------------------------- drain
 
@@ -427,10 +454,10 @@ class AsyncMultiMapper:
         with self._on(self._d2h if self._cuda else None):
             self._drain()
 
-    def _emit(self, host):
+    def _emit(self, host, set_span):
         self._stage_n += 1
         self.fps.tick()
-        self._out_q.put(host)
+        self._out_q.put((host, set_span))
 
     def _drain(self):
         while True:
@@ -443,41 +470,43 @@ class AsyncMultiMapper:
                 return
             if self._forward(item, self._out_q):
                 return
-            outs, nreal, done = item
-            t0 = time.perf_counter()
-            if self.drain_mode == "checksum":
-                scal = self._checksums(outs, done)
-                self._last_chk = scal
-                # the blocking fetch is amortized over 8 frames; a batch
-                # fetches when it holds a frame at 7 mod 8
-                fetch = self._stage_n % 8 >= 8 - nreal
-                vals = [float(s.item()) for s in scal] if fetch else [0.0] * len(scal)
-                frames = [list(vals) for _ in range(nreal)]
-            else:
-                host = self._to_host(outs, done)
-                if self._sharded:
-                    frames = [
-                        [m.assemble_yuv(h[b]).numpy() for m, h in zip(self.mappers, host)]
-                        for b in range(nreal)
-                    ]
-                elif self._cuda:
-                    frames = [[h.clone().numpy() for h in host]]  # the caller's own arrays
+            outs, sets, done = item
+            nreal = len(sets)
+            with self._span("drain", sets[0]) as drain:
+                if self.drain_mode == "checksum":
+                    scal = self._checksums(outs, done)
+                    self._last_chk = scal
+                    # the blocking fetch is amortized over 8 frames; a batch
+                    # fetches when it holds a frame at 7 mod 8
+                    fetch = self._stage_n % 8 >= 8 - nreal
+                    vals = [float(s.item()) for s in scal] if fetch else [0.0] * len(scal)
+                    frames = [list(vals) for _ in range(nreal)]
                 else:
-                    frames = [[h.numpy() for h in host]]
-            self._add("drain", (time.perf_counter() - t0) * 1e3, stage=True)
+                    host = self._to_host(outs, done)
+                    if self._sharded:
+                        frames = [
+                            [m.assemble_yuv(h[b]).numpy() for m, h in zip(self.mappers, host)]
+                            for b in range(nreal)
+                        ]
+                    elif self._cuda:
+                        frames = [[h.clone().numpy() for h in host]]  # the caller's own arrays
+                    else:
+                        frames = [[h.numpy() for h in host]]
+            self._also_under("drain", drain.start_ns, drain.end_ns, sets[1:])
             if self._sharded:
-                for f in frames:
-                    self._emit(f)
+                for f, sp in zip(frames, sets):
+                    self._emit(f, sp)
                 continue
             self._stage_n += 1
             if self._timers_on and self._stage_n % self._timer_interval == 0:
                 k = self._timer_interval
-                with self._stats_lock:
-                    for stage in ("upload", "dispatch", "drain"):
-                        print(f"[Timer stitch] {stage}: {self._stage_ms[stage] / k:.2f} ms", file=sys.stderr)
-                        self._stage_ms[stage] = 0.0
+                now = self._stage_ns()
+                for stage in STAGES:
+                    ms = (now[stage] - self._timer_mark[stage]) / 1e6
+                    print(f"[Timer stitch] {stage}: {ms / k:.2f} ms", file=sys.stderr)
+                self._timer_mark = now
             self.fps.tick()
-            self._out_q.put(frames[0])
+            self._out_q.put((frames[0], sets[0]))
 
     # --------------------------------------------------------------- API
 
@@ -485,6 +514,7 @@ class AsyncMultiMapper:
         """frames: one packed YUV420P uint8 [Hi*3/2, Wi] frame per input
         (numpy arrays, or tensors; tensors already on the mappers' device
         skip the rings).  Blocks when BUF_SIZE frame sets wait upstream."""
+        set_span = RECORDER.span("pipeline.set", set_id=RECORDER.new_set(), stacked=False)
         frames = list(frames)
         ready = None
         if self._cuda and any(_is_device_tensor(f, self.device) for f in frames):
@@ -494,7 +524,7 @@ class AsyncMultiMapper:
             if self._error is not None:
                 raise RuntimeError("the stitch pipeline failed") from self._error
             try:
-                self._in_q.put((frames, ready), timeout=0.1)
+                self._in_q.put((frames, ready, set_span), timeout=0.1)
                 return
             except queue.Full:
                 continue
@@ -516,7 +546,9 @@ class AsyncMultiMapper:
             raise StopIteration
         if isinstance(out, _Failure):
             raise RuntimeError("the stitch pipeline failed") from out.exc
-        return out
+        frames, set_span = out
+        RECORDER.end(set_span)
+        return frames
 
     def close_input(self):
         """Signal end-of-stream upstream: flushes any partial sharded
@@ -552,6 +584,7 @@ class AsyncMultiMapper:
         time and rate (CUDA only; ``None`` where nothing was copied)."""
         with self._stats_lock:
             t = dict(self._totals)
+        stage = self._stage_ns()
         n = max(1, self._stage_n)
 
         def rate(key):
@@ -559,7 +592,7 @@ class AsyncMultiMapper:
 
         return {
             "frames": self._stage_n,
-            **{f"{s}_ms": t[s] / n for s in ("upload", "dispatch", "drain")},
+            **{f"{s}_ms": stage[s] / 1e6 / n for s in STAGES},
             "h2d_bytes": int(t["h2d_bytes"]),
             "h2d_ms": t["h2d_ms"],
             "h2d_GBps": rate("h2d"),

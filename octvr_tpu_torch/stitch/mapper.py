@@ -39,6 +39,7 @@ from ..ops.cuda_remap import remap_apply, remap_apply_frames
 from ..ops.pyramid import require_full_f32
 from ..ops.remap import remap_group, remap_plan
 from ..ops.resize import resize_apply, resize_bilinear_host, resize_plan
+from ..runtime.timer import RECORDER
 from ..template.compiler import MapperTemplate
 from ..utils.device import resolve_device, tree_to
 from .blenders import (
@@ -540,40 +541,47 @@ class Mapper:
                 warped[i] = w
         return warped
 
-    def _forward_rgb(self, frames, ext_gains):
+    def _forward_rgb(self, planes, ext_gains):
+        """Everything after the prep (``_prep_rgb``'s planes): remap,
+        gains, blend, pack."""
         plan = self.plan
         n = self.num_inputs
         W, H = plan.canvas_size
-        warped = self._remap(self._prep_rgb(frames), plan.remap_groups, self._remap_dtype())
+        with RECORDER.span("mapper.remap"):
+            warped = self._remap(planes, plan.remap_groups, self._remap_dtype())
 
         gains = None
         if plan.gain is not None:
-            norms = self._work_norms_rgb(warped)
-            if plan.gain_blocks is not None:
-                gmaps = solve_block_gains(
-                    plan.gain_blocks, norms,
-                    out_rois=[ip.roi for ip in plan.inputs],
-                    scale=plan.working_scale,
-                )
-                warped = self._scale(warped, [g[None] for g in gmaps])
-            else:
-                gains = solve_gains(plan.gain, norms) if ext_gains is None else ext_gains
-                warped = self._scale(warped, list(gains.unbind(0)))
+            with RECORDER.span("mapper.gain_pool"):
+                norms = self._work_norms_rgb(warped)
+            with RECORDER.span("mapper.gain_solve"):
+                if plan.gain_blocks is not None:
+                    gmaps = solve_block_gains(
+                        plan.gain_blocks, norms,
+                        out_rois=[ip.roi for ip in plan.inputs],
+                        scale=plan.working_scale,
+                    )
+                    warped = self._scale(warped, [g[None] for g in gmaps])
+                else:
+                    gains = solve_gains(plan.gain, norms) if ext_gains is None else ext_gains
+                    warped = self._scale(warped, list(gains.unbind(0)))
 
-        canvas = self._blend(
-            plan.blender, warped[:n], (W, H),
-            [ip.roi for ip in plan.inputs], [ip.mask for ip in plan.inputs],
-        )
-        if canvas.dtype != torch.float32:
-            canvas = canvas.float()
-        for img, ip in zip(warped[n:], plan.overlays):
-            _paste(canvas, img, ip.roi, ip.mask)
-        canvas = torch.clamp(canvas, 0.0, 255.0)
-        if plan.resize is not None:
-            canvas = resize_apply(canvas, plan.resize)
-        out = self._merge(*rgb_planar_to_planes(canvas))
-        if gains is None:
-            gains = torch.ones(n, dtype=torch.float32, device=self.device)
+        with RECORDER.span("mapper.blend"):
+            canvas = self._blend(
+                plan.blender, warped[:n], (W, H),
+                [ip.roi for ip in plan.inputs], [ip.mask for ip in plan.inputs],
+            )
+        with RECORDER.span("mapper.pack"):
+            if canvas.dtype != torch.float32:
+                canvas = canvas.float()
+            for img, ip in zip(warped[n:], plan.overlays):
+                _paste(canvas, img, ip.roi, ip.mask)
+            canvas = torch.clamp(canvas, 0.0, 255.0)
+            if plan.resize is not None:
+                canvas = resize_apply(canvas, plan.resize)
+            out = self._merge(*rgb_planar_to_planes(canvas))
+            if gains is None:
+                gains = torch.ones(n, dtype=torch.float32, device=self.device)
         return out, gains
 
     # ------------------------------------------------------- yuv420 path
@@ -595,84 +603,89 @@ class Mapper:
             )
         return ys, uvs
 
-    def _forward_yuv(self, frames, ext_gains):
-        ys, uvs = self._prep_yuv(frames)
+    def _remap_yuv(self, ys, uvs, frames=False):
+        """The Y and U|V remaps, then chroma centring: chroma rides
+        centred (U-128, V-128) through gains and blend; uncovered pixels
+        stay 0 and become neutral 128 at the output."""
         dtype = self._remap_dtype()
-        warped_y = self._remap(ys, self.plan.remap_groups, dtype)
-        warped_uv = self._remap(uvs, self.plan.remap_uv_groups, dtype)
-        return self._postwarp_yuv(warped_y, warped_uv, ext_gains)
+        with RECORDER.span("mapper.remap"):
+            warped_y = self._remap(ys, self.plan.remap_groups, dtype, frames)
+            warped_uv = self._remap(uvs, self.plan.remap_uv_groups, dtype, frames)
+            return warped_y, [wuv - 128.0 for wuv in warped_uv]
 
     def _postwarp_yuv(self, warped_y, warped_uv, ext_gains):
-        """Chroma centring, gains, the two blends, overlays, resize,
-        packed output.  Chroma rides centred (U-128, V-128) through gains
-        and blend; uncovered pixels stay 0 and become neutral 128 at the
-        output."""
+        """Gains, the two blends, overlays, resize, packed output, from
+        the remapped planes with chroma centred (``_remap_yuv``)."""
         plan = self.plan
         n = self.num_inputs
         W, H = plan.canvas_size
-        warped_uv = [wuv - 128.0 for wuv in warped_uv]
 
         gains = None
         if plan.gain is not None:
-            norms = self._work_norms_yuv(warped_y, warped_uv)
-            if plan.gain_blocks is not None:
-                # one lattice solve, two sample grids: a chroma pixel is
-                # two luma pixels, so the lattice scale doubles
-                lattice = solve_block_lattice(plan.gain_blocks, norms)
-                gy = sample_block_lattice(
-                    plan.gain_blocks, lattice, [ip.roi for ip in plan.inputs],
-                    scale=plan.working_scale,
-                )
-                guv = sample_block_lattice(
-                    plan.gain_blocks, lattice, [ip.roi_uv for ip in plan.inputs],
-                    scale=plan.working_scale * 2.0,
-                )
-                warped_y = self._scale(warped_y, [g[None] for g in gy])
-                warped_uv = self._scale(warped_uv, [g[None] for g in guv])
-            else:
-                gains = solve_gains(plan.gain, norms) if ext_gains is None else ext_gains
-                factors = list(gains.unbind(0))
-                warped_y = self._scale(warped_y, factors)
-                warped_uv = self._scale(warped_uv, factors)
+            with RECORDER.span("mapper.gain_pool"):
+                norms = self._work_norms_yuv(warped_y, warped_uv)
+            with RECORDER.span("mapper.gain_solve"):
+                if plan.gain_blocks is not None:
+                    # one lattice solve, two sample grids: a chroma pixel is
+                    # two luma pixels, so the lattice scale doubles
+                    lattice = solve_block_lattice(plan.gain_blocks, norms)
+                    gy = sample_block_lattice(
+                        plan.gain_blocks, lattice, [ip.roi for ip in plan.inputs],
+                        scale=plan.working_scale,
+                    )
+                    guv = sample_block_lattice(
+                        plan.gain_blocks, lattice, [ip.roi_uv for ip in plan.inputs],
+                        scale=plan.working_scale * 2.0,
+                    )
+                    warped_y = self._scale(warped_y, [g[None] for g in gy])
+                    warped_uv = self._scale(warped_uv, [g[None] for g in guv])
+                else:
+                    gains = solve_gains(plan.gain, norms) if ext_gains is None else ext_gains
+                    factors = list(gains.unbind(0))
+                    warped_y = self._scale(warped_y, factors)
+                    warped_uv = self._scale(warped_uv, factors)
 
         ins = plan.inputs
-        y_canvas = self._blend(
-            plan.blender, warped_y[:n], (W, H),
-            [ip.roi for ip in ins], [ip.mask for ip in ins],
-        )
-        uv_canvas = self._blend(
-            plan.blender_uv, warped_uv[:n], (W // 2, H // 2),
-            [ip.roi_uv for ip in ins], [ip.mask_half for ip in ins],
-        )
-        for wy, wuv, ip in zip(warped_y[n:], warped_uv[n:], plan.overlays):
-            _paste(y_canvas, wy, ip.roi, ip.mask)
-            _paste(uv_canvas, wuv, ip.roi_uv, ip.mask_half)
+        with RECORDER.span("mapper.blend"):
+            y_canvas = self._blend(
+                plan.blender, warped_y[:n], (W, H),
+                [ip.roi for ip in ins], [ip.mask for ip in ins],
+            )
+            uv_canvas = self._blend(
+                plan.blender_uv, warped_uv[:n], (W // 2, H // 2),
+                [ip.roi_uv for ip in ins], [ip.mask_half for ip in ins],
+            )
+        with RECORDER.span("mapper.pack"):
+            for wy, wuv, ip in zip(warped_y[n:], warped_uv[n:], plan.overlays):
+                _paste(y_canvas, wy, ip.roi, ip.mask)
+                _paste(uv_canvas, wuv, ip.roi_uv, ip.mask_half)
 
-        yf = y_canvas[0].float()
-        uvf = uv_canvas.float() + 128.0
-        if plan.resize is not None:
-            # output resize in the native planes: Y at full resolution,
-            # chroma at half resolution
-            yf = resize_apply(yf, plan.resize)
-            uvf = resize_apply(uvf, plan.resize_uv)
-        out = self._merge(_quantize(yf), _quantize(uvf[0]), _quantize(uvf[1]))
-        if gains is None:
-            gains = torch.ones(n, dtype=torch.float32, device=self.device)
+            yf = y_canvas[0].float()
+            uvf = uv_canvas.float() + 128.0
+            if plan.resize is not None:
+                # output resize in the native planes: Y at full resolution,
+                # chroma at half resolution
+                yf = resize_apply(yf, plan.resize)
+                uvf = resize_apply(uvf, plan.resize_uv)
+            out = self._merge(_quantize(yf), _quantize(uvf[0]), _quantize(uvf[1]))
+            if gains is None:
+                gains = torch.ones(n, dtype=torch.float32, device=self.device)
         return out, gains
 
     def _forward_yuv_batch(self, frames, ext_gains):
         """B frames: per-frame prep, one frames-axis kernel launch per
         plane per size group for all B frames, per-frame post-warp."""
         B = frames[0].shape[0]
-        preps = [self._prep_yuv([f[b] for f in frames]) for b in range(B)]
+        preps = []
+        for b in range(B):
+            with RECORDER.span("mapper.prep"):
+                preps.append(self._prep_yuv([f[b] for f in frames]))
         # per input, its B frames: Y [B, 1, H, W] and U|V [B, 2, H/2, W/2]
         ys, uvs = (
             [torch.stack(per_input) for per_input in zip(*(p[k] for p in preps))]
             for k in (0, 1)
         )
-        dtype = self._remap_dtype()
-        warped_y = self._remap(ys, self.plan.remap_groups, dtype, frames=True)
-        warped_uv = self._remap(uvs, self.plan.remap_uv_groups, dtype, frames=True)
+        warped_y, warped_uv = self._remap_yuv(ys, uvs, frames=True)
         outs, gains = [], []
         for b in range(B):
             o, g = self._postwarp_yuv(
@@ -711,13 +724,19 @@ class Mapper:
         NV12 uint8 [Hi*3/2, Wi] tensor or array.  Returns (out uint8
         [Ho*3/2, Wo], gains f32 [n]) on the Mapper's device.  ``gains``
         ([n]) replaces the solved global gains (gain sharing between
-        outputs, async.cpp:75-91)."""
-        bufs = self._frames_to_device(frames, batched=False)
-        if gains is not None:
-            gains = torch.as_tensor(gains, dtype=torch.float32, device=self.device)
-        if self.plan.pipeline == "yuv420":
-            return self._forward_yuv(bufs, gains)
-        return self._forward_rgb(bufs, gains)
+        outputs, async.cpp:75-91).  Its spans (``runtime.timer.RECORDER``):
+        ``mapper.stitch`` and, in call order, ``mapper.prep``, ``.remap``,
+        ``.gain_pool``, ``.gain_solve``, ``.blend``, ``.pack``."""
+        yuv = self.plan.pipeline == "yuv420"
+        with RECORDER.span("mapper.stitch"):
+            with RECORDER.span("mapper.prep"):
+                bufs = self._frames_to_device(frames, batched=False)
+                if gains is not None:
+                    gains = torch.as_tensor(gains, dtype=torch.float32, device=self.device)
+                prepped = self._prep_yuv(bufs) if yuv else self._prep_rgb(bufs)
+            if yuv:
+                return self._postwarp_yuv(*self._remap_yuv(*prepped), gains)
+            return self._forward_rgb(prepped, gains)
 
     def stitch_batch(self, frames, gains=None):
         """frames: per input (then per overlay input) a uint8
@@ -727,17 +746,20 @@ class Mapper:
         plane and size group in one kernel launch; the rgb pipeline
         stitches frame by frame.  The JAX package's ``donate`` (buffer
         reuse inside one jitted program) has no meaning in eager torch
-        and is not taken."""
-        bufs = self._frames_to_device(frames, batched=True)
-        if gains is not None:
-            gains = torch.as_tensor(gains, dtype=torch.float32, device=self.device)
+        and is not taken.  Its spans: the stage spans of :meth:`stitch`
+        per frame (one ``mapper.remap`` for all B frames on the yuv420
+        pipeline), under the caller's open span."""
+        with RECORDER.span("mapper.prep"):
+            bufs = self._frames_to_device(frames, batched=True)
+            if gains is not None:
+                gains = torch.as_tensor(gains, dtype=torch.float32, device=self.device)
         if self.plan.pipeline == "yuv420":
             return self._forward_yuv_batch(bufs, gains)
         outs, gs = [], []
         for b in range(bufs[0].shape[0]):
-            o, g = self._forward_rgb(
-                [f[b] for f in bufs], None if gains is None else gains[b]
-            )
+            with RECORDER.span("mapper.prep"):
+                planes = self._prep_rgb([f[b] for f in bufs])
+            o, g = self._forward_rgb(planes, None if gains is None else gains[b])
             outs.append(o)
             gs.append(g)
         return torch.stack(outs), torch.stack(gs)
