@@ -11,10 +11,14 @@ a plain stack of planes or a flat run of source blocks (ops/remap.py
 ``COUNTS`` per variant (``"nc3_bf16"``, ``"frames_nc1_bf16"``,
 ``"concat_nc1_bf16"``, ``"frames_concat_nc2_bf16"``, ...; "concat" when
 the inputs read camera-row slices), so a run can show that each of its
-paths went through its kernel.
+paths went through its kernel.  A launch captured into a CUDA graph
+runs only when the graph is replayed: ``deferred_counts`` collects a
+capture's launches apart, and ``add_counts`` counts them at each replay.
 """
 
 import ctypes
+import threading
+from contextlib import contextmanager
 
 import torch
 
@@ -30,6 +34,8 @@ from .remap import (
 __all__ = [
     "COUNTS",
     "LAUNCHES",
+    "add_counts",
+    "deferred_counts",
     "launch_flat",
     "remap_apply",
     "remap_apply_frames",
@@ -52,6 +58,7 @@ _ARGTYPES = {
 }
 _ENTRIES = {}  # (nc, out dtype, frames) -> ctypes function
 _INVALID_VALUE = 1  # cudaErrorInvalidValue: a shape the kernels refuse
+_LOCAL = threading.local()  # .sink: the dict of an open deferred_counts
 
 
 def reset_counts():
@@ -59,6 +66,33 @@ def reset_counts():
     global LAUNCHES
     LAUNCHES = 0
     COUNTS.clear()
+
+
+def add_counts(counts):
+    """Counts launches ({variant: launches}) in ``LAUNCHES`` and
+    ``COUNTS``, or, inside ``deferred_counts`` on this thread, in its
+    dict."""
+    global LAUNCHES
+    sink = getattr(_LOCAL, "sink", None)
+    for key, n in counts.items():
+        if sink is None:
+            COUNTS[key] = COUNTS.get(key, 0) + n
+            LAUNCHES += n
+        else:
+            sink[key] = sink.get(key, 0) + n
+
+
+@contextmanager
+def deferred_counts():
+    """Launches made inside, on this thread, go to the yielded dict
+    ({variant: launches}) and not to ``LAUNCHES`` and ``COUNTS``: a
+    graph's capture, whose launches run at its replays."""
+    prev = getattr(_LOCAL, "sink", None)
+    _LOCAL.sink = counts = {}
+    try:
+        yield counts
+    finally:
+        _LOCAL.sink = prev
 
 
 def _entry(nc: int, out_dtype, frames: bool):
@@ -113,10 +147,8 @@ def launch_flat(src, plan: RemapGroup, out_dtype=torch.float32, frames: bool = F
         )
     if err != 0:
         raise RuntimeError(f"remap kernel launch failed: CUDA error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
     key = f"{'frames_' if frames else ''}{'concat_' if plan.concat else ''}nc{nc}_{_OUT_TAGS[out_dtype]}"
-    COUNTS[key] = COUNTS.get(key, 0) + 1
+    add_counts({key: 1})
     return out, nc
 
 

@@ -16,10 +16,14 @@ which later inputs overwrite earlier ones (blend == 0); gains are off,
 global (pairwise) or "blocks" (per-block gain maps).  The plan is built
 once on the host in numpy (the JAX package's own arithmetic) and moved
 to the device as tensors; the frame path is eager torch plus the remap
-kernel, with no host round trip.
+kernel, with no host round trip.  On a CUDA device ``Mapper.stitch``
+records that path once as a CUDA graph and replays it on every later
+call, so a frame costs the host a copy in, one graph launch and a copy
+out instead of some 1,700 launches issued from Python.
 """
 
 import math
+import threading
 from dataclasses import dataclass, field, replace
 from typing import List, Optional
 
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 
+from ..ops import cuda_remap
 from ..ops.color import (
     merge_nv12,
     merge_yuv420p,
@@ -370,6 +375,46 @@ def _paste(canvas, img, roi, mask):
     )
 
 
+class _StitchGraph:
+    """One CUDA graph of ``Mapper._stitch_eager`` for one call signature
+    (gains solved, or given): the static inputs it reads, the outputs it
+    writes, the remap launches it holds, and an event after its last
+    replay, which a replay on another stream waits for before it
+    rewrites the inputs."""
+
+    def __init__(self, mapper, bufs, gains, stream):
+        """Captures the path on ``stream`` over static inputs shaped as
+        ``bufs`` and ``gains``.  Work of other threads goes on meanwhile
+        (``capture_error_mode="thread_local"``); a failed capture
+        raises."""
+        dev = mapper.device
+        self.inputs = [torch.empty(tuple(b.shape), dtype=torch.uint8, device=dev) for b in bufs]
+        self.gains = None if gains is None else torch.empty_like(gains)
+        self.graph = torch.cuda.CUDAGraph()
+        with cuda_remap.deferred_counts() as self.launches:
+            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
+                self.out, self.out_gains = mapper._stitch_eager(self.inputs, self.gains)
+        self.done = torch.cuda.Event()
+        self.stream = None  # the stream of the last replay
+
+    def replay(self, bufs, gains):
+        """Copies the call's inputs in, replays the graph and returns
+        fresh copies of its outputs, all on the calling stream."""
+        stream = torch.cuda.current_stream(self.out.device)
+        if self.stream is not None and self.stream != stream:
+            stream.wait_event(self.done)
+        for dst, src in zip(self.inputs, bufs):
+            dst.copy_(src)
+        if gains is not None:
+            self.gains.copy_(gains)
+        self.graph.replay()
+        out = self.out.clone(), self.out_gains.clone()
+        self.done.record(stream)
+        self.stream = stream
+        cuda_remap.add_counts(self.launches)
+        return out
+
+
 class Mapper:
     """The stitcher on a torch device.
 
@@ -449,6 +494,8 @@ class Mapper:
         for idxs, g in zip(plan.group_idx, plan.remap_groups):
             for i in idxs:
                 self.in_sizes[i] = g.in_shape
+        self._graphs = {}  # gains given: _StitchGraph (CUDA only)
+        self._graph_lock = threading.Lock()
 
     def _remap_dtype(self):
         """The kernel's store dtype, the JAX Mapper's: multiband takes
@@ -699,14 +746,15 @@ class Mapper:
 
     # ------------------------------------------------------------- public
 
-    def _frames_to_device(self, frames, batched):
+    def _check_frames(self, frames, batched):
+        """The frames as uint8 tensors of the shapes ``in_sizes`` gives,
+        where they are (host or device)."""
         if len(frames) != len(self.in_sizes):
             raise ValueError(f"{len(frames)} frames for {len(self.in_sizes)} inputs")
         bufs = []
         for f, (h, w) in zip(frames, self.in_sizes):
             if not isinstance(f, torch.Tensor):
                 f = torch.from_numpy(np.array(f))  # a writable copy
-            f = f.to(self.device)
             want = (h * 3 // 2, w)
             shape = tuple(f.shape[1:]) if batched else tuple(f.shape)
             if f.dtype != torch.uint8 or shape != want or f.dim() != 2 + batched:
@@ -719,24 +767,73 @@ class Mapper:
             raise ValueError("every input needs the same number of frames")
         return bufs
 
+    def _frames_to_device(self, frames, batched):
+        return [f.to(self.device) for f in self._check_frames(frames, batched)]
+
     def stitch(self, frames, gains=None):
         """frames: per input (then per overlay input) a packed YUV420P or
         NV12 uint8 [Hi*3/2, Wi] tensor or array.  Returns (out uint8
         [Ho*3/2, Wo], gains f32 [n]) on the Mapper's device.  ``gains``
         ([n]) replaces the solved global gains (gain sharing between
-        outputs, async.cpp:75-91).  Its spans (``runtime.timer.RECORDER``):
-        ``mapper.stitch`` and, in call order, ``mapper.prep``, ``.remap``,
-        ``.gain_pool``, ``.gain_solve``, ``.blend``, ``.pack``."""
-        yuv = self.plan.pipeline == "yuv420"
+        outputs, async.cpp:75-91).
+
+        On the CPU this is ``_stitch_eager``.  On a CUDA device the first
+        call of each signature (``gains`` given or not) runs it eagerly
+        and captures it as a CUDA graph; every later call copies its
+        frames (and gains) into the graph's inputs, replays the graph
+        and returns copies of its outputs (so an output kept across
+        calls stays as it was), on the calling thread's current stream,
+        one call at a time.  Its spans
+        (``runtime.timer.RECORDER``): ``mapper.stitch``, and under it the
+        stage spans of ``_stitch_eager`` on the CPU, ``mapper.capture``
+        around those of the eager run and of the capture, or
+        ``mapper.replay``."""
         with RECORDER.span("mapper.stitch"):
-            with RECORDER.span("mapper.prep"):
-                bufs = self._frames_to_device(frames, batched=False)
-                if gains is not None:
-                    gains = torch.as_tensor(gains, dtype=torch.float32, device=self.device)
-                prepped = self._prep_yuv(bufs) if yuv else self._prep_rgb(bufs)
-            if yuv:
-                return self._postwarp_yuv(*self._remap_yuv(*prepped), gains)
-            return self._forward_rgb(prepped, gains)
+            if self.device.type != "cuda":
+                return self._stitch_eager(frames, gains)
+            # the graph holds the GEMMs cuBLAS chose at capture: a TF32
+            # setting made since then must still raise
+            require_full_f32()
+            bufs = self._check_frames(frames, batched=False)
+            if gains is not None:
+                gains = torch.as_tensor(gains, dtype=torch.float32, device=self.device)
+            with self._graph_lock:
+                graph = self._graphs.get(gains is not None)
+                if graph is None:
+                    with RECORDER.span("mapper.capture"):
+                        return self._capture(bufs, gains)
+                with RECORDER.span("mapper.replay"):
+                    return graph.replay(bufs, gains)
+
+    def _capture(self, bufs, gains):
+        """The first call of a signature: the eager stitch on a side
+        stream (its outputs are the call's result), then the capture of
+        the same path on that stream (PyTorch's recipe for a graph)."""
+        caller = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):
+            first = self._stitch_eager(bufs, gains)
+        caller.wait_stream(side)
+        for t in first:  # made on the side stream, used on the caller's
+            t.record_stream(caller)
+        self._graphs[gains is not None] = _StitchGraph(self, bufs, gains, side)
+        return first
+
+    def _stitch_eager(self, frames, gains=None):
+        """The stitch as eager torch ops and the remap kernel (arguments
+        and result as :meth:`stitch`), with its stage spans in call
+        order: ``mapper.prep``, ``.remap``, ``.gain_pool``,
+        ``.gain_solve``, ``.blend``, ``.pack``."""
+        yuv = self.plan.pipeline == "yuv420"
+        with RECORDER.span("mapper.prep"):
+            bufs = self._frames_to_device(frames, batched=False)
+            if gains is not None:
+                gains = torch.as_tensor(gains, dtype=torch.float32, device=self.device)
+            prepped = self._prep_yuv(bufs) if yuv else self._prep_rgb(bufs)
+        if yuv:
+            return self._postwarp_yuv(*self._remap_yuv(*prepped), gains)
+        return self._forward_rgb(prepped, gains)
 
     def stitch_batch(self, frames, gains=None):
         """frames: per input (then per overlay input) a uint8

@@ -1,7 +1,9 @@
 """Port tests that need an NVIDIA card: the CUDA remap kernels (NC=1, 2
 and 3; the one-frame kernel on ragged inputs and on a shape it refuses;
 the frames kernel against one-frame launches; stacked or concat
-sources; a CUDA-graph replay) and the
+sources; a CUDA-graph replay), the Mapper's graph against its eager
+stitch (every option group, fresh outputs, two streams, the pipeline,
+TF32 set after the capture), and the
 three kernels of the MXU-taps probe (kernel 8) against their plain
 torch versions, and the port's Mapper and ShardedMapper (every option
 group) on the card against the port on the CPU, and the band group
@@ -220,6 +222,132 @@ def test_stitch_batch_on_card_equals_stitch(cuda_device):
         o, gb = m.stitch(fs)
         assert torch.equal(out[b], o) and torch.equal(g[b], gb)
     assert FastMapper(mt, sizes, device=cuda_device).plan.pipeline == "yuv420"
+
+
+GRAPH_CASES = {
+    "yuv420": dict(blend=16),  # global gains, bf16 pyramids
+    "rgb": dict(blend=16, pipeline="rgb"),
+    "blocks": dict(blend=16, enable_gain="blocks"),
+    "external_gains": dict(blend=16),
+    "fast_nv12": None,  # FastMapper: NV12 in and out, feather, no gains
+}
+
+
+def _graph_mapper(device, case):
+    mt, sizes, _ = _small_rig(device)
+    if case == "fast_nv12":
+        return FastMapper(mt, sizes, device=device)
+    return Mapper(mt, sizes, device=device, **GRAPH_CASES[case])
+
+
+def _case_gains(case, k, device):
+    return torch.tensor([1.0 + 0.05 * k, 0.95], device=device) if case == "external_gains" else None
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_replay_equals_eager_on_card(cuda_device, case):
+    """Mapper.stitch on the card (its first call captures the graph, the
+    later ones replay it) equals ``_stitch_eager`` bit for bit on four
+    distinct sets, host and device frames alternately; the first call
+    opens ``mapper.capture`` and the later ones ``mapper.replay``; a
+    replay counts the remap launches of one eager call."""
+    from octvr_tpu_torch.runtime.timer import RECORDER
+
+    m = _graph_mapper(cuda_device, case)
+    sets = _pipeline_sets(4, seed=50)
+    mark = RECORDER.new_id()
+    got = []
+    for k, s in enumerate(sets):
+        frames = s if k % 2 == 0 else [torch.from_numpy(f).to(cuda_device) for f in s]
+        got.append(m.stitch(frames, gains=_case_gains(case, k, cuda_device)))
+    spans = RECORDER.spans(mark)
+    roots = [x for x in spans if x.name == "mapper.stitch"]
+    graph_kids = [[c.name for c in spans if c.parent == r.id] for r in roots]
+    assert graph_kids == [["mapper.capture"]] + [["mapper.replay"]] * 3
+    assert list(m._graphs) == [case == "external_gains"]
+    for k, ((o, g), s) in enumerate(zip(got, sets)):
+        eo, eg = m._stitch_eager(s, gains=_case_gains(case, k, cuda_device))
+        assert torch.equal(o, eo) and torch.equal(g, eg), k
+    cuda_remap.reset_counts()
+    m._stitch_eager(sets[0], gains=_case_gains(case, 0, cuda_device))
+    eager = dict(cuda_remap.COUNTS)
+    cuda_remap.reset_counts()
+    m.stitch(sets[0], gains=_case_gains(case, 0, cuda_device))
+    assert eager and cuda_remap.COUNTS == eager
+
+
+def test_replay_outputs_are_fresh_on_card(cuda_device):
+    """Each replay returns its own tensors: an output kept from one call
+    is not overwritten by the next."""
+    m = _graph_mapper(cuda_device, "yuv420")
+    a, b = _pipeline_sets(2, seed=51)
+    m.stitch(a)  # the capture
+    o1, g1 = m.stitch(a)
+    kept = o1.clone(), g1.clone()
+    o2, g2 = m.stitch(b)
+    torch.cuda.synchronize()
+    assert o1.data_ptr() != o2.data_ptr() and g1.data_ptr() != g2.data_ptr()
+    assert torch.equal(o1, kept[0]) and torch.equal(g1, kept[1]) and not torch.equal(o1, o2)
+
+
+def test_replay_on_two_streams_on_card(cuda_device):
+    """One Mapper called from two streams in turn gives the eager
+    outputs: a call on the second stream waits for the replay on the
+    first before it rewrites the graph's inputs, though that replay is
+    held back on its stream by a spin."""
+    m = _graph_mapper(cuda_device, "yuv420")
+    sets = [[torch.from_numpy(f).to(cuda_device) for f in s] for s in _pipeline_sets(3, seed=52)]
+    want = [m._stitch_eager(s) for s in sets]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for k in range(8):
+        st = streams[k % 2]
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            if k % 2 == 0:
+                torch.cuda._sleep(5_000_000)
+            got.append(m.stitch(sets[k % 3]))
+    torch.cuda.synchronize()
+    for k, (o, g) in enumerate(got):
+        assert torch.equal(o, want[k % 3][0]) and torch.equal(g, want[k % 3][1]), k
+
+
+def test_pipeline_over_graphed_mappers_on_card(cuda_device):
+    """An AsyncMultiMapper over graph-backed Mappers, an owner and a gain
+    copier (which replays its graph for given gains), pops the outputs
+    of eager stitches, bit for bit, in order."""
+    from octvr_tpu_torch.runtime import BUF_SIZE, AsyncMultiMapper
+
+    mt, sizes, _ = _small_rig(cuda_device)
+    m0 = Mapper(mt, sizes, blend=16, device=cuda_device)
+    m1 = Mapper(mt, sizes, blend=-8, device=cuda_device)
+    sets = _pipeline_sets(2 * BUF_SIZE + 1, seed=53)
+    got = _drain_all(AsyncMultiMapper([m0, m1], gain_modes=[0, 0]), sets)
+    assert list(m0._graphs) == [False] and list(m1._graphs) == [True]
+    for outs, s in zip(got, sets):
+        o0, g0 = m0._stitch_eager(s)
+        o1, _ = m1._stitch_eager(s, gains=g0)
+        assert np.array_equal(outs[0], o0.cpu().numpy()) and np.array_equal(outs[1], o1.cpu().numpy())
+
+
+def test_tf32_after_capture_still_raises_on_card(cuda_device):
+    """A process that allows TF32 matmuls after the graph was captured
+    gets the same RuntimeError from a replayed stitch as from an eager
+    one."""
+    m = _graph_mapper(cuda_device, "yuv420")
+    (s,) = _pipeline_sets(1, seed=54)
+    m.stitch(s)
+    m.stitch(s)
+    flags = _tf32_flags()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="highest"):
+            m.stitch(s)
+        with pytest.raises(RuntimeError, match="highest"):
+            m._stitch_eager(s)
+    finally:
+        torch.set_float32_matmul_precision(flags[2])
+    assert _tf32_flags() == flags
 
 
 def _concat_case(device, nc, seed, frames=None):

@@ -146,6 +146,28 @@ def test_remap_wrapper_takes_plain_version_on_cpu():
     assert cuda_remap.LAUNCHES == before  # no kernel ran
 
 
+def test_deferred_counts_hold_a_capture_apart():
+    """Launches counted inside ``deferred_counts`` go to its dict, on its
+    thread alone; ``add_counts`` of that dict counts them again at each
+    replay of the graph that holds them."""
+    import threading
+
+    before, counts = cuda_remap.LAUNCHES, dict(cuda_remap.COUNTS)
+    with cuda_remap.deferred_counts() as held:
+        cuda_remap.add_counts({"nc1_bf16": 1})
+        cuda_remap.add_counts({"nc1_bf16": 1, "nc2_bf16": 1})
+        other = threading.Thread(target=cuda_remap.add_counts, args=({"nc3_f32": 1},))
+        other.start()
+        other.join(timeout=10)
+        assert not other.is_alive()
+    assert held == {"nc1_bf16": 2, "nc2_bf16": 1}
+    assert cuda_remap.LAUNCHES == before + 1 and cuda_remap.COUNTS.get("nc3_f32", 0) == counts.get("nc3_f32", 0) + 1
+    for _ in range(2):
+        cuda_remap.add_counts(held)
+    assert cuda_remap.LAUNCHES == before + 7
+    assert cuda_remap.COUNTS["nc1_bf16"] == counts.get("nc1_bf16", 0) + 4
+
+
 def test_pyramid_matrices_bit_equal():
     for n in (2, 6, 16, 40, 97):
         assert np.array_equal(pyramid.down_matrix(n), jpyr.down_matrix(n))

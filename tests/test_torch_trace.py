@@ -22,7 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 from octvr_tpu_torch.parallel import ShardedMapper, make_mesh
 from octvr_tpu_torch.runtime import AsyncMultiMapper, timer
 from octvr_tpu_torch.runtime.timer import RECORDER, RING, Recorder, self_times
-from octvr_tpu_torch.stitch import Mapper
+from octvr_tpu_torch.stitch import FastMapper, Mapper
 from octvr_tpu_torch.template import compile_rig
 from rigs import two_fisheye_rig
 
@@ -32,6 +32,7 @@ CAM = 128
 SIZES = [(CAM, CAM)] * 2
 
 STAGES = ["mapper.prep", "mapper.remap", "mapper.gain_pool", "mapper.gain_solve", "mapper.blend", "mapper.pack"]
+GRAPH_SPANS = ("mapper.capture", "mapper.replay")
 
 
 @pytest.fixture(scope="module")
@@ -187,6 +188,32 @@ def test_mapper_stage_spans_cover_stitch(mt, pipeline):
     assert RECORDER.spans(mark)[-1].profiled
 
 
+@pytest.mark.parametrize("kind", ["yuv420", "rgb", "fast"])
+def test_cpu_stitch_is_eager(mt, kind):
+    """A CPU Mapper's stitch is ``_stitch_eager`` under its
+    ``mapper.stitch`` span: the same bytes, the stage spans in call
+    order (FastMapper has no gain stages), no ``mapper.capture`` or
+    ``mapper.replay`` span, no graph."""
+    if kind == "fast":
+        m = FastMapper(mt, SIZES, device="cpu")
+    else:
+        m = Mapper(mt, SIZES, blend=8, enable_gain=True, pipeline=kind, device="cpu")
+    sets = random_sets(3, seed=2)
+    mark = RECORDER.new_id()
+    outs = [m.stitch(s) for s in sets]
+    spans = RECORDER.spans(mark)
+    assert not [s for s in spans if s.name in GRAPH_SPANS] and m._graphs == {}
+    roots = [s for s in spans if s.name == "mapper.stitch"]
+    assert len(roots) == 3
+    for root in roots:
+        kids = sorted((s for s in spans if s.parent == root.id), key=lambda k: k.start_ns)
+        want = STAGES if kind != "fast" else [s for s in STAGES if "gain" not in s]
+        assert [k.name for k in kids] == want
+    for (o, g), s in zip(outs, sets):
+        eo, eg = m._stitch_eager(s)
+        assert torch.equal(o, eo) and torch.equal(g, eg)
+
+
 @pytest.mark.parametrize("pipeline", ["yuv420", "rgb"])
 def test_stitch_batch_spans(mt, pipeline):
     """stitch_batch opens the stage spans per frame under the caller's
@@ -198,6 +225,7 @@ def test_stitch_batch_spans(mt, pipeline):
         out, _ = m.stitch_batch([torch.from_numpy(np.stack(x)) for x in zip(*sets)])
     spans = RECORDER.spans(mark)
     assert all(s.parent == caller.id for s in spans if s.name.startswith("mapper."))
+    assert not [s for s in spans if s.name in GRAPH_SPANS]
     names = [k.name for k in sorted((s for s in spans if s.parent == caller.id), key=lambda k: k.start_ns)]
     remaps = 1 if pipeline == "yuv420" else 2
     assert names.count("mapper.prep") == 3 and names.count("mapper.remap") == remaps
