@@ -6,6 +6,13 @@ A frozen, trimmed copy of the arithmetic of the system's offline stage
 equirectangular, eqarea poles, vignette.cpp, the distance seam finder),
 in NumPy f64, for the camera types the benchmark's configurations use.
 It imports nothing of the system under test.
+
+A camera that sees nothing of an output (a polar cap seen from the
+other pole) keeps its slot in the template's ``inputs``, at its index in
+the rig, as the explicit empty input ``{"empty": True, "roi": None}``;
+the distance seams are worked out over the covering inputs alone.  So
+every covering input is, array for array, the one compiled over the rig
+without the empty cameras.  An output that no camera covers raises.
 """
 
 import math
@@ -288,7 +295,9 @@ def distance_seams(masks, corners):
 def compile_template(output, inputs, width, height):
     """One output of a rig -> {"size": (W, H), "inputs": [{roi, map1,
     map2, mask, seam, vignette}]}: every output pixel projected through
-    each input camera, the ROI padded, distance seams at <= 960 px."""
+    each input camera, the ROI padded, distance seams at <= 960 px over
+    the covering inputs; a camera that covers no pixel is the empty
+    input ``{"empty": True, "roi": None}``."""
     out_cam = camera(output)
     if height <= 0:
         height = int(width / out_cam.aspect())
@@ -302,7 +311,8 @@ def compile_template(output, inputs, width, height):
         y = xy[..., 1].astype(np.float32)
         valid = np.isfinite(x) & np.isfinite(y) & (x >= 0) & (x < 1) & (y >= 0) & (y < 1)
         if not valid.any():
-            raise ValueError("an input covers no output pixel")
+            ins.append({"empty": True, "roi": None})
+            continue
         rows = np.flatnonzero(valid.any(axis=1))
         cols = np.flatnonzero(valid.any(axis=0))
         c0, r0 = max(0, cols[0] - ROI_PAD), max(0, rows[0] - ROI_PAD)
@@ -316,12 +326,15 @@ def compile_template(output, inputs, width, height):
             "mask": np.where(valid, np.uint8(255), np.uint8(0))[sl],
             "vignette": vignette_map(spec.get("options", {})),
         })
+    covering = [i for i in ins if not i.get("empty")]
+    if not covering:
+        raise ValueError("no input covers any output pixel")
     scale = min(1.0, SEAM_WORK_WIDTH / width)
     small, corners = [], []
-    for i in ins:
+    for i in covering:
         rx, ry, rw, rh = i["roi"]
         corners.append((int(rx * scale), int(ry * scale)))
         small.append(resize_bilinear(i["mask"], int(rh * scale), int(rw * scale)))
-    for i, s in zip(ins, distance_seams(small, corners)):
+    for i, s in zip(covering, distance_seams(small, corners)):
         i["seam"] = resize_bilinear(s, i["roi"][3], i["roi"][2])
     return {"size": (width, height), "inputs": ins}

@@ -12,6 +12,15 @@ round to uint8.  Everything between the two roundings is float32 unless
 value there, as a program computing in that precision would.  It imports
 nothing of the system under test and takes nothing it made: the maps,
 masks, seams and vignettes come from ``offline.compile_template``.
+
+An empty input of the template (a camera that covers no pixel of the
+output) takes no part in anything: its frame is never read, it has no
+gather, vignette, gain norm, row of the gain system, pyramid or paste,
+and its gain reads exactly 1.0.  The definition the reference is held
+to: an output with camera ``k`` empty stitches, byte for byte, what the
+same output compiled over the rig without camera ``k`` stitches from the
+frames without frame ``k``; its gains are that output's, with 1.0 put
+back at ``k``, so that there is still one gain per camera of the rig.
 """
 
 import math
@@ -130,7 +139,8 @@ def _every(x, dim, start, count, step):
 
 class ReferenceOutput:
     """One output: its host geometry from a compiled template, and
-    :meth:`stitch` for one frame set."""
+    :meth:`stitch` for one frame set.  ``live`` lists the rig's cameras
+    that cover the output; everything else is built over them alone."""
 
     def __init__(self, template, cam_size, blend, gain, device):
         self.dev = device
@@ -138,7 +148,9 @@ class ReferenceOutput:
         self.size = (W, H)
         self.blend, self.gain = blend, gain
         ch, cw = cam_size
-        ins = template["inputs"]
+        self.n_rig = len(template["inputs"])
+        self.live = [k for k, i in enumerate(template["inputs"]) if not i.get("empty")]
+        ins = [template["inputs"][k] for k in self.live]
         self.n = len(ins)
         self.rois = [i["roi"] for i in ins]
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
@@ -308,11 +320,15 @@ class ReferenceOutput:
         return canvas
 
     def stitch(self, frames, gains=None, quantize=None):
-        """frames: per camera a uint8 [H*3/2, W] YUV420P tensor on the
-        reference's device.  Returns (uint8 [Ho*3/2, Wo] YUV420P on the
-        host, float64 gains [n])."""
+        """frames: per camera of the rig a uint8 [H*3/2, W] YUV420P
+        tensor on the reference's device; ``gains``, if given, one per
+        camera of the rig.  Returns (uint8 [Ho*3/2, Wo] YUV420P on the
+        host, float64 gains [cameras of the rig], 1.0 at an empty input)."""
         q = rounding(quantize)
         rq = (lambda v: v) if q is None else q
+        frames = [frames[k] for k in self.live]
+        if gains is not None:
+            gains = [gains[k] for k in self.live]
         ys, uvs = [], []
         for k, f in enumerate(frames):
             f = f.to(self.dev)
@@ -348,4 +364,6 @@ class ReferenceOutput:
 
         uvc = uvc + 128.0
         out = torch.cat([u8(yc[0]), torch.cat([u8(uvc[0]), u8(uvc[1])], dim=1)], dim=0)
-        return out.cpu(), np.asarray(gains, dtype=np.float64)
+        rig_gains = np.ones(self.n_rig)
+        rig_gains[self.live] = np.asarray(gains, dtype=np.float64)
+        return out.cpu(), rig_gains

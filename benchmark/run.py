@@ -75,6 +75,7 @@ def run_cell(spec, cell_name, seed, seconds, trace, device="cuda", t_start=None)
     rec["library_s"] = time.time() - t0
     system = System(config, device)
     rec["template_s"], rec["plan_build_s"], rec["compiled"] = system.template_s, system.plan_build_s, system.compiled
+    rec["outputs"] = len(system.mappers)
     t0 = time.time()
     pool = frames.make_pool(seed, mix["pool"], system.n_cams, system.cam_size, device)
     sample = drive.sample_indices(seed, seconds, SAMPLE)

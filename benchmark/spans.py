@@ -1,13 +1,18 @@
 """Per-layer numbers read from the port's span recorder
 (``octvr_tpu_torch.runtime.timer.RECORDER``) over a run's window.
 
-A window's sets are the last ``rec["frames"]`` spans named ``root``
-(``mapper.stitch`` for a resident cell, where one call is one set;
-``pipeline.set`` for a live one) that opened with no profiler
-recording: the warm-up's sets come before them, and a traced segment's
-after them, opened under the profiler.  Each number is a percentile over
-those sets.  Where the program has no recorder (a checkout before it)
-or holds fewer such sets than the window's, a reader gets None.
+A window's sets are the last spans named ``root`` that opened with no
+profiler recording: the warm-up's sets come before them, and a traced
+segment's after them, opened under the profiler.  A live cell's root,
+``pipeline.set``, is one span a set, so its window is the last
+``rec["frames"]`` of them.  A resident cell's, ``mapper.stitch``, is one
+span a call, and a set of a configuration with ``rec["outputs"]``
+outputs is that many consecutive calls: its window is the last
+``frames x outputs`` calls, and a set reads as one span whose duration,
+children and self time are the sums over its calls (with one output,
+the call's own span).  Each number is a percentile over those sets.
+Where the program has no recorder (a checkout before it) or holds fewer
+such sets than the window's, a reader gets None.
 """
 
 from .stats import percentile
@@ -28,17 +33,25 @@ def window(rec, root):
     if timer is None:
         return None
     spans = timer.RECORDER.spans()
-    n = rec.get("frames") or 0
+    per_set = rec.get("outputs", 1) if root == "mapper.stitch" else 1  # one call an output
+    n = (rec.get("frames") or 0) * per_set
     roots = [s for s in spans if s.name == root and not s.profiled]
     if n < 1 or len(roots) < n:
         return None
-    sets = roots[-n:]
-    ids = {s.id for s in sets}
+    calls = roots[-n:]
+    ids = {s.id for s in calls}
     kids = {}
     for s in spans:
         if s.parent in ids:
             kids.setdefault(s.parent, []).append(s)
-    own = timer.self_times(sets + [k for ks in kids.values() for k in ks])
+    own = timer.self_times(calls + [k for ks in kids.values() for k in ks])
+    sets = []
+    for i in range(0, n, per_set):
+        group = calls[i : i + per_set]
+        first = group[0]
+        sets.append(first._replace(end_ns=first.start_ns + sum(s.end_ns - s.start_ns for s in group)))
+        kids[first.id] = [k for s in group for k in kids.get(s.id, ())]
+        own[first.id] = sum(own[s.id] for s in group)
     return sets, kids, own
 
 

@@ -2,8 +2,12 @@
 metrics that use it) on a synthetic recorder: the window is the last
 ``rec["frames"]`` sets opened outside a profiler, the medians and 95th
 percentiles are over those sets, and a reader gets None without a
-recorder or with too few sets.  Then a traced CPU run of each traffic
-kind reads every one of them from the program's own spans."""
+recorder or with too few sets; a resident set of several outputs (one
+``mapper.stitch`` call each) reads as one set.  Then a traced CPU run of
+each traffic kind, and of two outputs, reads every one of them from the
+program's own spans."""
+
+import json
 
 import numpy as np
 import pytest
@@ -128,3 +132,41 @@ def test_cpu_runs_read_every_span_metric(small, bench_dir, cell_spec):
     live, _ = run.run_cell(cell_spec(small, "live_16fps"), "t", 2**31 + 22, 1.0, 1, "cpu")
     waits = [live["metrics"][n]["value"] for n in LIVE]
     assert 0 <= waits[0] <= waits[1] and waits[2] > 0
+
+
+def test_a_set_of_several_outputs_reads_as_one_set(fake):
+    """A resident set of a six-output configuration is six consecutive
+    ``mapper.stitch`` calls: a set's reading is the sum over its calls.
+    With one output a set, each call is a set, as without the key."""
+    t = 0
+    for _ in range(2):  # warm-up: outside the window
+        t = resident_calls(fake, [50] * 6, t=t)
+    window = np.random.default_rng(7).uniform(0.5, 20.0, size=(5, 6, 6))  # sets, outputs, stages
+    for outputs in window:
+        for ms in outputs:
+            t = resident_calls(fake, ms, t=t)
+    for _ in range(3):  # a traced segment: opened under the profiler
+        t = resident_calls(fake, [70] * 6, profiled=True, t=t)
+    six = {n: spec.reader(n)({"frames": 5, "outputs": 6}) for n in RESIDENT}
+    assert six["stitch_host_ms.resident"] == pytest.approx(np.median(window.sum(axis=(1, 2)) + 6 * 0.5))
+    for k, name in enumerate(RESIDENT[1:]):
+        assert six[name] == pytest.approx(np.median(window[:, :, k].sum(axis=1))), name
+    one = {n: spec.reader(n)({"frames": 30, "outputs": 1}) for n in RESIDENT}
+    assert one == {n: spec.reader(n)({"frames": 30}) for n in RESIDENT}
+    assert one["stitch_host_ms.resident"] == pytest.approx(np.median(window.reshape(30, 6).sum(axis=1) + 0.5))
+    assert all(spec.reader(n)({"frames": 6, "outputs": 6}) is None for n in RESIDENT)  # 32 unprofiled calls
+
+
+def test_cpu_run_of_two_outputs_reads_each_set_once(small, bench_dir, cell_spec, tmp_path):
+    """A traced CPU run of a two-output configuration (the second output
+    copies the first's gains): a set's host ms is both calls', so the
+    stitch's median stands beside the host's enqueue ms per set."""
+    c = {k: v for k, v in small.items() if k != "path"}
+    c["outputs"] = [small["outputs"][0], dict(small["outputs"][0], name="copy")]
+    path = tmp_path / "two.json"
+    path.write_text(json.dumps(c))
+    res, _ = run.run_cell(cell_spec(dict(c, path=str(path)), "resident"), "t", 2**31 + 25, 1.0, 1, "cpu")
+    assert res["correct"]
+    got = {n: res["metrics"][n]["value"] for n in RESIDENT + ["enqueue_ms.resident"]}
+    assert got["stitch_host_ms.resident"] == pytest.approx(got["enqueue_ms.resident"], rel=0.25)
+    assert sum(got[n] for n in RESIDENT[1:]) == pytest.approx(got["stitch_host_ms.resident"], rel=0.15)
