@@ -92,7 +92,11 @@ def main(argv=None):
         import os
 
         os.makedirs(args.debug_dir, exist_ok=True)
+        from ..template.compiler import is_empty
+
         for i, (inp, sm) in enumerate(zip(mt.inputs, mt.seam_masks)):
+            if is_empty(inp):  # a camera that sees nothing of the output
+                continue
             write_png(f"{args.debug_dir}/mask_{i}.png", inp.mask)
             write_png(f"{args.debug_dir}/seam_{i}.png", sm)
             if imgs is not None and i < len(imgs):

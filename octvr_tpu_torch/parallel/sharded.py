@@ -54,7 +54,7 @@ from ..stitch.gain import BETA, GainPlan, finish_gain_plan, solve_pair_means
 from ..stitch.gain_blocks import assemble_and_solve_lattice, build_blocks_gain_plan
 from ..stitch.mapper import _pool_cols_matrix, _pool_pow2, _quantize, _working_stride, size_groups
 from ..stitch.yuv_mode import half_maps, yuv_rgb_norm
-from ..template.compiler import MapperTemplate
+from ..template.compiler import MapperTemplate, is_empty
 from ..utils.device import resolve_device, tree_to
 
 __all__ = [
@@ -591,6 +591,12 @@ def _check_options(mt, in_sizes, pipeline, enable_gain, frame_format, out_size):
         raise ValueError(f"unknown frame_format {frame_format!r}")
     if enable_gain not in (False, True, "blocks"):
         raise ValueError(f"unknown enable_gain {enable_gain!r}")
+    for k, inp in enumerate(mt.inputs):
+        if is_empty(inp):
+            raise ValueError(
+                f"camera {k} covers no pixel of the output (an empty input): the band-sharded "
+                "stitcher takes none; stitch the output with Mapper"
+            )
     ncam, nov = len(mt.inputs), len(mt.overlay_inputs)
     sizes = [tuple(int(v) for v in s) for s in in_sizes]
     if len(sizes) == ncam and nov:

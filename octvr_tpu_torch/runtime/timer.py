@@ -15,7 +15,9 @@ beside it.  ``Recorder.to_profiler_ns`` puts a span on the clock of
 ``torch.profiler``'s events (``time.time_ns()``), on every thread, which
 matters because the profiler records no range of the pipeline's
 threads.  Always on, with no switch: a span costs two clock reads, one
-object, an append and a locked add to its totals, 7 spans a stitch.
+object, an append and a locked add to its totals: 7 spans an eager
+stitch, 5 a replayed one (the call, its replay, and the replay's copy
+in, launch and copy out).
 """
 
 import itertools
@@ -29,9 +31,10 @@ from torch.profiler import record_function
 
 __all__ = ["Timer", "FpsMeter", "Recorder", "RECORDER", "RING", "Span", "self_times"]
 
-# closed spans kept, the oldest dropped first: four 51 s windows of the
-# busiest cell (~2,000 stitches of 7 spans) and a traced segment
-RING = 1 << 16
+# closed spans kept, the oldest dropped first: a 51 s window and the
+# traced segments of the busiest cell with room (a set of six replayed
+# outputs is 30 spans: up to ~260,000 spans at 160 sets/s)
+RING = 1 << 19
 
 Span = namedtuple("Span", "name id parent set_id thread start_ns end_ns profiled")
 

@@ -20,6 +20,16 @@ kernel, with no host round trip.  On a CUDA device ``Mapper.stitch``
 records that path once as a CUDA graph and replays it on every later
 call, so a frame costs the host a copy in, one graph launch and a copy
 out instead of some 1,700 launches issued from Python.
+
+A template may hold empty inputs (``template.compiler.empty_input``: a
+camera that covers no pixel of the output, as the camera facing one
+pole under the other pole's cap).  The plan is then built over the
+covering inputs alone, exactly as over the rig without the empty
+cameras, and keeps the map back to the rig: a call still takes one
+frame per camera of the rig and checks it, but an empty camera's frame
+is never copied, prepped, remapped, pooled or blended, and the gains
+stay one per camera of the rig, 1.0 at an empty camera (a given gain
+there is ignored).
 """
 
 import math
@@ -45,7 +55,7 @@ from ..ops.pyramid import require_full_f32
 from ..ops.remap import remap_group, remap_plan
 from ..ops.resize import resize_apply, resize_bilinear_host, resize_plan
 from ..runtime.timer import RECORDER
-from ..template.compiler import MapperTemplate
+from ..template.compiler import MapperTemplate, is_empty
 from ..utils.device import resolve_device, tree_to
 from .blenders import (
     build_feather_plan,
@@ -139,6 +149,11 @@ class StitchPlan:
     group_idx: tuple = ()  # per size group: indices into inputs + overlays
     resize: object = None  # ResizePlan canvas -> out_size (Y or RGB)
     resize_uv: object = None  # ResizePlan of the chroma planes (yuv420)
+    # a template with empty inputs: per frame of a call (cameras of the
+    # rig, then overlay inputs) its (H, W), and per input then overlay of
+    # the plan the index of its frame; both empty when every camera covers
+    frame_sizes: tuple = ()
+    frame_idx: tuple = ()
 
     def to(self, device):
         def blender(b):
@@ -280,7 +295,25 @@ def build_plan(
     out_size=None,
 ) -> StitchPlan:
     """Host (numpy) plan.  in_sizes: (H, W) per input, then per overlay
-    input.  enable_gain: False, True or "blocks"."""
+    input.  enable_gain: False, True or "blocks".  Over a template with
+    empty inputs, the plan of the covering ones (see the module's
+    docstring); without a covering input it raises."""
+    live = [k for k, inp in enumerate(mt.inputs) if not is_empty(inp)]
+    if not live:
+        raise ValueError("no input covers any output pixel")
+    if len(live) < len(mt.inputs):
+        n = len(mt.inputs)
+        idx = tuple(live) + tuple(range(n, n + len(mt.overlay_inputs)))
+        covering = MapperTemplate(
+            out_size=mt.out_size,
+            inputs=[mt.inputs[k] for k in live],
+            overlay_inputs=list(mt.overlay_inputs),
+            seam_masks=[mt.seam_masks[k] for k in live],
+        )
+        plan = build_plan(
+            covering, [in_sizes[i] for i in idx], blend, enable_gain, blend_dtype, pipeline, out_size
+        )
+        return replace(plan, frame_sizes=tuple(tuple(hw) for hw in in_sizes), frame_idx=idx)
     W, H = mt.out_size
     out_size = tuple(out_size) if out_size else (W, H)
     yuv = pipeline == "yuv420"
@@ -384,7 +417,8 @@ class _StitchGraph:
 
     def __init__(self, mapper, bufs, gains, stream):
         """Captures the path on ``stream`` over static inputs shaped as
-        ``bufs`` and ``gains``.  Work of other threads goes on meanwhile
+        ``bufs`` (the plan's frames, ``Mapper._check_frames``) and
+        ``gains``.  Work of other threads goes on meanwhile
         (``capture_error_mode="thread_local"``); a failed capture
         raises."""
         dev = mapper.device
@@ -393,25 +427,32 @@ class _StitchGraph:
         self.graph = torch.cuda.CUDAGraph()
         with cuda_remap.deferred_counts() as self.launches:
             with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
-                self.out, self.out_gains = mapper._stitch_eager(self.inputs, self.gains)
+                self.out, self.out_gains = mapper._stitch_planned(self.inputs, self.gains)
         self.done = torch.cuda.Event()
         self.stream = None  # the stream of the last replay
 
-    def replay(self, bufs, gains):
-        """Copies the call's inputs in, replays the graph and returns
-        fresh copies of its outputs, all on the calling stream."""
+    def replay(self, mapper, frames, gains):
+        """Checks ``mapper``'s call's frames and copies them (an empty
+        camera's left out) and its gains in, replays the graph and
+        returns fresh copies of its outputs, all on the calling stream,
+        under the spans ``mapper.copy_in``, ``mapper.launch`` and
+        ``mapper.copy_out``."""
         stream = torch.cuda.current_stream(self.out.device)
-        if self.stream is not None and self.stream != stream:
-            stream.wait_event(self.done)
-        for dst, src in zip(self.inputs, bufs):
-            dst.copy_(src)
-        if gains is not None:
-            self.gains.copy_(gains)
-        self.graph.replay()
-        out = self.out.clone(), self.out_gains.clone()
-        self.done.record(stream)
-        self.stream = stream
-        cuda_remap.add_counts(self.launches)
+        with RECORDER.span("mapper.copy_in"):
+            bufs = mapper._check_frames(frames, batched=False)
+            if self.stream is not None and self.stream != stream:
+                stream.wait_event(self.done)
+            for dst, src in zip(self.inputs, bufs):
+                dst.copy_(src)
+            if gains is not None:
+                self.gains.copy_(gains)
+        with RECORDER.span("mapper.launch"):
+            self.graph.replay()
+        with RECORDER.span("mapper.copy_out"):
+            out = self.out.clone(), self.out_gains.clone()
+            self.done.record(stream)
+            self.stream = stream
+            cuda_remap.add_counts(self.launches)
         return out
 
 
@@ -427,7 +468,7 @@ class Mapper:
     None picks bfloat16 on CUDA and float32 on the CPU.  pipeline: "rgb",
     "yuv420", or "auto", which picks yuv420 on CUDA when the geometry is
     even and rgb otherwise.  in_sizes: (H, W) per input, then per overlay
-    input of the template."""
+    input of the template, empty inputs included."""
 
     def __init__(
         self,
@@ -468,7 +509,7 @@ class Mapper:
             pipeline = "yuv420" if (on_cuda and even) else "rgb"
         if pipeline == "yuv420" and not even:
             raise ValueError("yuv420 pipeline needs even frame geometry")
-        if len(mt.inputs) == 1:
+        if sum(not is_empty(inp) for inp in mt.inputs) == 1:
             blend, enable_gain = 0, False
         if blend_dtype is None:
             blend_dtype = "bfloat16" if on_cuda else "float32"
@@ -489,11 +530,20 @@ class Mapper:
         self.plan = plan
         self.device = device
         self.frame_format = frame_format
-        self.num_inputs = len(plan.inputs)
-        self.in_sizes = [None] * (self.num_inputs + len(plan.overlays))
-        for idxs, g in zip(plan.group_idx, plan.remap_groups):
-            for i in idxs:
-                self.in_sizes[i] = g.in_shape
+        self.num_inputs = len(plan.inputs)  # the inputs the plan blends
+        n_all = self.num_inputs + len(plan.overlays)
+        self._frame_idx = plan.frame_idx or tuple(range(n_all))
+        self._live = None  # the covering cameras, where some camera is empty
+        if plan.frame_idx:
+            self.in_sizes = list(plan.frame_sizes)  # per frame of a call
+            self._live = torch.tensor(plan.frame_idx[: self.num_inputs], device=device)
+        else:
+            self.in_sizes = [None] * n_all
+            for idxs, g in zip(plan.group_idx, plan.remap_groups):
+                for i in idxs:
+                    self.in_sizes[i] = g.in_shape
+        self.cameras = len(self.in_sizes) - len(plan.overlays)  # one gain each
+        self._graphed = device.type == "cuda"  # stitch replays a CUDA graph
         self._graphs = {}  # gains given: _StitchGraph (CUDA only)
         self._graph_lock = threading.Lock()
 
@@ -540,6 +590,29 @@ class Mapper:
                 uvimg = wuv.float()[:, ip.uv_rows][:, :, ip.uv_cols]
             norms.append(yuv_rgb_norm(yimg[0], uvimg[0], uvimg[1]))
         return norms
+
+    def _plan_gains(self, gains):
+        """Given gains, one per camera of the rig, as the plan's: those of
+        the covering cameras."""
+        return gains if gains is None or self._live is None else gains[self._live]
+
+    def _rig_gains(self, gains):
+        """The plan's gains as one per camera of the rig, 1.0 at an empty
+        camera."""
+        if self._live is None:
+            return gains
+        rig = torch.ones(self.cameras, dtype=gains.dtype, device=gains.device)
+        return rig.index_copy_(0, self._live, gains)
+
+    def _forward(self, prepped, gains):
+        """Everything after the prep (``_prep_yuv``'s or ``_prep_rgb``'s
+        planes), gains in and out one per camera of the rig."""
+        gains = self._plan_gains(gains)
+        if self.plan.pipeline == "yuv420":
+            out, gains = self._postwarp_yuv(*self._remap_yuv(*prepped), gains)
+        else:
+            out, gains = self._forward_rgb(prepped, gains)
+        return out, self._rig_gains(gains)
 
     @staticmethod
     def _scale(imgs, factors):
@@ -738,17 +811,18 @@ class Mapper:
             o, g = self._postwarp_yuv(
                 [w[b] for w in warped_y],
                 [w[b] for w in warped_uv],
-                None if ext_gains is None else ext_gains[b],
+                self._plan_gains(None if ext_gains is None else ext_gains[b]),
             )
             outs.append(o)
-            gains.append(g)
+            gains.append(self._rig_gains(g))
         return torch.stack(outs), torch.stack(gains)
 
     # ------------------------------------------------------------- public
 
     def _check_frames(self, frames, batched):
         """The frames as uint8 tensors of the shapes ``in_sizes`` gives,
-        where they are (host or device)."""
+        where they are (host or device), in the plan's order: an empty
+        camera's frame is checked and left out."""
         if len(frames) != len(self.in_sizes):
             raise ValueError(f"{len(frames)} frames for {len(self.in_sizes)} inputs")
         bufs = []
@@ -765,17 +839,18 @@ class Mapper:
             bufs.append(f)
         if batched and len({f.shape[0] for f in bufs}) != 1:
             raise ValueError("every input needs the same number of frames")
-        return bufs
+        return [bufs[i] for i in self._frame_idx]
 
     def _frames_to_device(self, frames, batched):
         return [f.to(self.device) for f in self._check_frames(frames, batched)]
 
     def stitch(self, frames, gains=None):
         """frames: per input (then per overlay input) a packed YUV420P or
-        NV12 uint8 [Hi*3/2, Wi] tensor or array.  Returns (out uint8
-        [Ho*3/2, Wo], gains f32 [n]) on the Mapper's device.  ``gains``
-        ([n]) replaces the solved global gains (gain sharing between
-        outputs, async.cpp:75-91).
+        NV12 uint8 [Hi*3/2, Wi] tensor or array, empty inputs included.
+        Returns (out uint8 [Ho*3/2, Wo], gains f32 [n]) on the Mapper's
+        device, n the cameras of the rig (``cameras``).  ``gains`` ([n])
+        replaces the solved global gains (gain sharing between outputs,
+        async.cpp:75-91).
 
         On the CPU this is ``_stitch_eager``.  On a CUDA device the first
         call of each signature (``gains`` given or not) runs it eagerly
@@ -787,23 +862,23 @@ class Mapper:
         (``runtime.timer.RECORDER``): ``mapper.stitch``, and under it the
         stage spans of ``_stitch_eager`` on the CPU, ``mapper.capture``
         around those of the eager run and of the capture, or
-        ``mapper.replay``."""
+        ``mapper.replay`` around ``mapper.copy_in``, ``mapper.launch``
+        and ``mapper.copy_out``."""
         with RECORDER.span("mapper.stitch"):
-            if self.device.type != "cuda":
+            if not self._graphed:
                 return self._stitch_eager(frames, gains)
             # the graph holds the GEMMs cuBLAS chose at capture: a TF32
             # setting made since then must still raise
             require_full_f32()
-            bufs = self._check_frames(frames, batched=False)
             if gains is not None:
                 gains = torch.as_tensor(gains, dtype=torch.float32, device=self.device)
             with self._graph_lock:
                 graph = self._graphs.get(gains is not None)
                 if graph is None:
                     with RECORDER.span("mapper.capture"):
-                        return self._capture(bufs, gains)
+                        return self._capture(self._check_frames(frames, batched=False), gains)
                 with RECORDER.span("mapper.replay"):
-                    return graph.replay(bufs, gains)
+                    return graph.replay(self, frames, gains)
 
     def _capture(self, bufs, gains):
         """The first call of a signature: the eager stitch on a side
@@ -813,7 +888,7 @@ class Mapper:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(caller)
         with torch.cuda.stream(side):
-            first = self._stitch_eager(bufs, gains)
+            first = self._stitch_planned(bufs, gains)
         caller.wait_stream(side)
         for t in first:  # made on the side stream, used on the caller's
             t.record_stream(caller)
@@ -825,20 +900,22 @@ class Mapper:
         and result as :meth:`stitch`), with its stage spans in call
         order: ``mapper.prep``, ``.remap``, ``.gain_pool``,
         ``.gain_solve``, ``.blend``, ``.pack``."""
-        yuv = self.plan.pipeline == "yuv420"
+        return self._stitch_planned(self._check_frames(frames, batched=False), gains)
+
+    def _stitch_planned(self, bufs, gains):
+        """:meth:`_stitch_eager` over the plan's frames (``_check_frames``),
+        the path that the CUDA graph captures."""
         with RECORDER.span("mapper.prep"):
-            bufs = self._frames_to_device(frames, batched=False)
+            bufs = [f.to(self.device) for f in bufs]
             if gains is not None:
                 gains = torch.as_tensor(gains, dtype=torch.float32, device=self.device)
-            prepped = self._prep_yuv(bufs) if yuv else self._prep_rgb(bufs)
-        if yuv:
-            return self._postwarp_yuv(*self._remap_yuv(*prepped), gains)
-        return self._forward_rgb(prepped, gains)
+            prepped = self._prep_yuv(bufs) if self.plan.pipeline == "yuv420" else self._prep_rgb(bufs)
+        return self._forward(prepped, gains)
 
     def stitch_batch(self, frames, gains=None):
         """frames: per input (then per overlay input) a uint8
-        [B, Hi*3/2, Wi] stack of B frames.  Returns (out uint8
-        [B, Ho*3/2, Wo], gains f32 [B, n]); ``gains`` ([B, n]) as in
+        [B, Hi*3/2, Wi] stack of B frames, empty inputs included.  Returns
+        (out uint8 [B, Ho*3/2, Wo], gains f32 [B, n]); ``gains`` ([B, n]) as in
         :meth:`stitch`.  The yuv420 pipeline remaps all B frames of a
         plane and size group in one kernel launch; the rgb pipeline
         stitches frame by frame.  The JAX package's ``donate`` (buffer
@@ -856,7 +933,7 @@ class Mapper:
         for b in range(bufs[0].shape[0]):
             with RECORDER.span("mapper.prep"):
                 planes = self._prep_rgb([f[b] for f in bufs])
-            o, g = self._forward_rgb(planes, None if gains is None else gains[b])
+            o, g = self._forward(planes, None if gains is None else gains[b])
             outs.append(o)
             gs.append(g)
         return torch.stack(outs), torch.stack(gs)

@@ -20,7 +20,7 @@ from .seam import distance_seam_find
 ROI_PAD = 8  # template.cpp:124-133
 SEAM_WORK_WIDTH = 960.0  # template.cpp:158
 
-__all__ = ["TemplateInput", "MapperTemplate", "compile_rig"]
+__all__ = ["TemplateInput", "MapperTemplate", "compile_rig", "empty_input", "is_empty"]
 
 
 @dataclass
@@ -30,6 +30,27 @@ class TemplateInput:
     map2: np.ndarray  # f32 [rh, rw] normalized input y
     mask: np.ndarray  # u8  [rh, rw]
     vignette: Optional[np.ndarray]  # f32 [512, 512] gain map or None
+
+
+def empty_input():
+    """The input of a camera that covers no pixel of the output (a polar
+    cap seen from the other pole): a zero ROI and 0x0 maps, mask and seam
+    mask, no vignette.  It keeps the camera's index among the template's
+    inputs; the seams, and every stitcher's plan, are worked out over the
+    covering inputs alone, so that each covering input is the one
+    compiled over the rig without the empty cameras."""
+    return TemplateInput(
+        roi=(0, 0, 0, 0),
+        map1=np.zeros((0, 0), np.float32),
+        map2=np.zeros((0, 0), np.float32),
+        mask=np.zeros((0, 0), np.uint8),
+        vignette=None,
+    )
+
+
+def is_empty(inp):
+    """Whether a template input is an :func:`empty_input` (a zero ROI)."""
+    return inp.roi[2] == 0 or inp.roi[3] == 0
 
 
 @dataclass
@@ -78,7 +99,8 @@ class MapperTemplate:
     def add_input(self, cam_type: str, cam_opts: dict, overlay=False, use_roi=True):
         """Project every output pixel through the input camera; build
         map1/map2/mask, tighten the ROI, apply include-mask priority
-        (template.cpp:46-153)."""
+        (template.cpp:46-153).  A camera that covers no output pixel is
+        kept as :func:`empty_input`; an overlay that covers none raises."""
         cam = new_camera(cam_type, cam_opts)
         w, h = self.out_size
         lonlat = self._output_lonlat()
@@ -96,8 +118,14 @@ class MapperTemplate:
         map1 = np.where(valid, x, np.float32(-1.0))
         map2 = np.where(valid, y, np.float32(-1.0))
 
-        if valid.sum() == 0:
-            raise ValueError("input does not cover any output pixel")
+        if not valid.any():
+            if overlay:
+                raise ValueError("overlay input does not cover any output pixel")
+            # its include mask claims nothing new either: it lies inside
+            # the camera's image, which every unclaimed pixel misses
+            self.inputs.append(empty_input())
+            self._input_cams.append(cam)
+            return self.inputs[-1]
 
         rows = np.flatnonzero(valid.any(axis=1))
         cols = np.flatnonzero(valid.any(axis=0))
@@ -144,9 +172,12 @@ class MapperTemplate:
         COST_COLOR_GRAD normalization, seam_finders.cpp:1283-1335)."""
         w, h = self.out_size
         scale = min(1.0, SEAM_WORK_WIDTH / w)
+        live = self.covering()
+        if imgs and len(live) < len(self.inputs):  # an image per input, empty ones too
+            imgs = [imgs[k] for k in live]
 
         scaled, corners = [], []
-        for inp in self.inputs:
+        for inp in (self.inputs[k] for k in live):
             rx, ry, rw, rh = inp.roi
             sw, sh = int(rw * scale), int(rh * scale)
             corners.append((int(rx * scale), int(ry * scale)))
@@ -161,7 +192,7 @@ class MapperTemplate:
             seams = distance_seam_find(scaled, corners, max_n=1)
         else:
             srcs = []
-            for inp, img in zip(self.inputs, imgs):
+            for inp, img in zip((self.inputs[k] for k in live), imgs):
                 warped = _remap_image_cpu(img, inp.map1, inp.map2)
                 sh2, sw2 = scaled[len(srcs)].shape
                 srcs.append(
@@ -188,11 +219,19 @@ class MapperTemplate:
             else:
                 raise ValueError(f"unknown seam kind {seam!r}")
 
-        self.seam_masks = []
-        for inp, sm in zip(self.inputs, seams):
-            _, _, rw, rh = inp.roi
-            self.seam_masks.append(resize_bilinear_host(sm, rh, rw))
+        self.seam_masks = [np.zeros((0, 0), np.uint8) for _ in self.inputs]
+        for k, sm in zip(live, seams):
+            _, _, rw, rh = self.inputs[k].roi
+            self.seam_masks[k] = resize_bilinear_host(sm, rh, rw)
         return self.seam_masks
+
+    def covering(self):
+        """Indices of the inputs that cover some output pixel (all but
+        the empty ones); raises if there are none."""
+        live = [k for k, inp in enumerate(self.inputs) if not is_empty(inp)]
+        if not live:
+            raise ValueError("no input covers any output pixel")
+        return live
 
 
 def _remap_image_cpu(img: np.ndarray, map1: np.ndarray, map2: np.ndarray):
@@ -236,4 +275,5 @@ def compile_rig(rig: dict, width: int, height: int = 0) -> MapperTemplate:
     # the reference CLI uses the key "overlays" (dump.cpp:87)
     for inp in rig.get("overlays", rig.get("overlay_inputs", [])):
         mt.add_input(inp["type"], inp.get("options", {}), overlay=True)
+    mt.covering()
     return mt

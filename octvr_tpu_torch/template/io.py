@@ -8,7 +8,11 @@ Two formats:
 * ``.npz`` — the native format (numpy archive), faster and compressed.
 
 The port's copy of octvr_tpu/template/io.py: both formats read and
-write the same bytes as the original.
+write the same bytes as the original.  Beside it, both round-trip an
+empty input (a camera that covers no output pixel, ``empty_input``):
+in ``.dat`` a zero ROI ``(0, 0, 0, 0)`` with 0x0 maps, mask, vignette
+and seam mask, read back as empty; a template without one is written
+as before, byte for byte.
 """
 
 import struct
@@ -16,7 +20,7 @@ from typing import BinaryIO
 
 import numpy as np
 
-from .compiler import MapperTemplate, TemplateInput
+from .compiler import MapperTemplate, TemplateInput, empty_input, is_empty
 
 MAGIC = b"VRv11"
 
@@ -82,9 +86,10 @@ def _winput(f: BinaryIO, inp: TemplateInput):
 
 def _rinput(f: BinaryIO) -> TemplateInput:
     roi = (_r64(f), _r64(f), _r64(f), _r64(f))
-    return TemplateInput(
+    inp = TemplateInput(
         roi=roi, map1=_rmat(f), map2=_rmat(f), mask=_rmat(f), vignette=_rmat(f)
     )
+    return empty_input() if is_empty(inp) else inp
 
 
 def dump_dat(mt: MapperTemplate, f: BinaryIO):
@@ -114,6 +119,9 @@ def load_dat(f: BinaryIO) -> MapperTemplate:
     n = _r64(f)
     mt.inputs = [_rinput(f) for _ in range(n)]
     mt.seam_masks = [_rmat(f) for _ in range(n)]
+    for k, inp in enumerate(mt.inputs):
+        if is_empty(inp):
+            mt.seam_masks[k] = np.zeros((0, 0), np.uint8)
     n_overlay = _r64(f)
     mt.overlay_inputs = [_rinput(f) for _ in range(n_overlay)]
     return mt

@@ -3,7 +3,7 @@ and 3; the one-frame kernel on ragged inputs and on a shape it refuses;
 the frames kernel against one-frame launches; stacked or concat
 sources; a CUDA-graph replay), the Mapper's graph against its eager
 stitch (every option group, fresh outputs, two streams, the pipeline,
-TF32 set after the capture), and the
+TF32 set after the capture, a polar cap with an empty input), and the
 three kernels of the MXU-taps probe (kernel 8) against their plain
 torch versions, and the port's Mapper and ShardedMapper (every option
 group) on the card against the port on the CPU, and the band group
@@ -274,6 +274,52 @@ def test_replay_equals_eager_on_card(cuda_device, case):
     cuda_remap.reset_counts()
     m.stitch(sets[0], gains=_case_gains(case, 0, cuda_device))
     assert eager and cuda_remap.COUNTS == eager
+
+
+def _bench_cap(size=192):
+    """The benchmark's six-fisheye rig at ``size``^2 under a 64x64 north
+    cap, which camera 5 (the south pole's) does not see."""
+    import json
+    import math
+    from pathlib import Path
+
+    rig = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "configs" / "mono360_4k.json").read_text())
+    for s in rig["rig"]["inputs"]:
+        s["options"]["width"] = s["options"]["height"] = size
+    cap = {"type": "eqareanorthpole", "options": {"arctic_circle": math.pi / 4}}
+    mt = compile_rig({"output": cap, "inputs": rig["rig"]["inputs"]}, 64, 64)
+    mt.create_masks()
+    return mt, [(size, size)] * 6
+
+
+@pytest.mark.parametrize("blend", [0, 128], ids=["paste", "multiband_gains"])
+def test_graphed_cap_with_an_empty_input_on_card(cuda_device, blend):
+    """A graphed Mapper over a polar cap with an empty input (camera 5)
+    replays equal to its eager stitch; its graph holds static inputs for
+    the five covering frames alone, a replay's span has its copy in,
+    launch and copy out, the empty camera's frame changes no byte, and
+    the gains have the rig's length with 1.0 at camera 5."""
+    from octvr_tpu_torch.runtime.timer import RECORDER
+
+    mt, sizes = _bench_cap()
+    m = Mapper(mt, sizes, blend=blend, enable_gain=blend > 0, device=cuda_device)
+    assert m.plan.frame_idx == (0, 1, 2, 3, 4)
+    rng = np.random.default_rng(54)
+    sets = [[rng.integers(0, 256, (288, 192), dtype=np.uint8) for _ in range(6)] for _ in range(3)]
+    sets.append(sets[1][:5] + [np.zeros_like(sets[1][5])])
+    mark = RECORDER.new_id()
+    got = [m.stitch(s) for s in sets]  # a capture, then replays
+    spans = RECORDER.spans(mark)
+    replays = [x for x in spans if x.name == "mapper.replay"]
+    assert len(replays) == 3
+    for r in replays:
+        assert sorted(x.name for x in spans if x.parent == r.id) == ["mapper.copy_in", "mapper.copy_out", "mapper.launch"]
+    assert len(m._graphs[False].inputs) == 5
+    for (o, g), s in zip(got, sets):
+        eo, eg = m._stitch_eager(s)
+        assert torch.equal(o, eo) and torch.equal(g, eg)
+        assert g.shape == (6,) and g[5].item() == 1.0
+    assert torch.equal(got[3][0], got[1][0])
 
 
 def test_replay_outputs_are_fresh_on_card(cuda_device):
