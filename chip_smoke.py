@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 Phases, each failing the run on any error:
   1. environment: torch, CUDA, triton, the card and its power limit;
   2. build of the two kernel libraries (utils/build.py: ``product``,
-     csrc/remap.cu; ``tools``, csrc/mxu_taps.cu; nvcc, sm_90a), one nvcc
+     csrc/remap.cu and csrc/pyramid.cu; ``tools``, csrc/mxu_taps.cu;
+     nvcc, sm_90a), one nvcc
      each, started together, with each one's time and ptxas register
      and spill lines;
   3. the remap kernels (csrc/remap.cu: remap_kernel for one frame,
@@ -64,10 +65,17 @@ Phases, each failing the run on any error:
   5. the main path: 6 x 1920^2 fisheyes -> 3840x1920, the rig of the JAX
      package's benchmark (its own copy here, ``six_cam_rig``), yuv420 +
      bf16 + gains, 24 frame sets from seed 0 on the device; ms/frame,
-     first-call time, frame-0 checksum, peak memory, kernel launch
-     counts, and one torch.profiler pass;
+     first-call time, frame-0 checksum, peak memory, the remap and
+     pyramid kernels' launch counts (each replayed set's), and one
+     torch.profiler pass;
      b. the same rig on the rgb pipeline (blend 128, gains, bf16);
      c. stitch_batch at B=4 on the yuv420 pipeline against stitch;
+     d. the pyramid kernels (csrc/pyramid.cu) of phase 5's two blends,
+        through multiband_blend: device ms per blend, their byte bound
+        (each byte read or written once, at 3.35 TB/s) and share, and the
+        banded products with the eager ops on the card (the library
+        yardstick); in bf16 and in f32 every launch against those
+        products and ops on its own inputs;
   6. the band-sharded path: the same 4K rig through make_mesh(1, 4) with
      source windows (kernel 6), blend 128, gains, bf16, on phase 5's
      frame sets, at B=1 and at B=4 through the frames axis; plan-build
@@ -204,6 +212,7 @@ takes from phases 2, 6 and 8 made first.
 """
 
 import ast
+import contextlib
 import importlib.util
 import json
 import math
@@ -214,6 +223,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -1362,8 +1372,20 @@ def make_frame_sets(n=ITERS):
     return sets
 
 
+def _pyramid_counts(plan, dtype="bf16"):
+    """{variant: launches} of the pyramid kernels in one stitch of a
+    yuv420 Mapper's ``plan``: per multiband blend (Y at C=1, U|V at C=2)
+    and image, B downs and B Laplacian accumulates, and B collapse
+    steps."""
+    counts = {}
+    for bl, c in ((plan.blender, 1), (plan.blender_uv, 2)):
+        n, b = len(bl.align_rois), bl.num_bands
+        counts.update({f"down_c{c}_{dtype}": n * b, f"up_lap_c{c}_{dtype}": n * b, f"up_add_c{c}_{dtype}": b})
+    return counts
+
+
 def phase_main_path(mt, t_template, frame_sets):
-    from octvr_tpu_torch.ops import cuda_remap
+    from octvr_tpu_torch.ops import cuda_pyramid, cuda_remap
     from octvr_tpu_torch.stitch import Mapper
 
     log("== 5. main path: 6 x 1920^2 fisheyes -> 3840x1920, yuv420 + bf16 + gains")
@@ -1379,6 +1401,7 @@ def phase_main_path(mt, t_template, frame_sets):
 
     # the main path's launch counts: reset just before, read just after
     cuda_remap.reset_counts()
+    cuda_pyramid.reset_counts()
     t0 = time.time()
     out, gains = mapper.stitch(frame_sets[0])
     checksum = int(out[::101, ::103].to(torch.int64).sum().item())
@@ -1393,6 +1416,7 @@ def phase_main_path(mt, t_template, frame_sets):
     ms_frame = (time.time() - t0) / ITERS * 1e3
     launches = cuda_remap.LAUNCHES
     counts = dict(cuda_remap.COUNTS)
+    pyr_counts = dict(cuda_pyramid.COUNTS)
     peak = torch.cuda.max_memory_allocated()
     log(f"  first call {t_first:.3f} s")
     log(f"  output checksum (frame 0): {checksum}")
@@ -1403,6 +1427,11 @@ def phase_main_path(mt, t_template, frame_sets):
     log(f"  remap kernel launches: {launches} over {ITERS + 1} frames: {counts}")
     if counts != {"nc1_bf16": ITERS + 1, "nc2_bf16": ITERS + 1}:
         raise AssertionError(f"expected {ITERS + 1} launches of each of nc1_bf16 and nc2_bf16")
+    per_set = _pyramid_counts(mapper.plan)
+    log(f"  pyramid kernel launches: {cuda_pyramid.LAUNCHES} over {ITERS + 1} frames: {pyr_counts} "
+        f"(a set: {per_set})")
+    if pyr_counts != {k: (ITERS + 1) * v for k, v in per_set.items()}:
+        raise AssertionError(f"expected {ITERS + 1} sets of the pyramid launches {per_set}")
     if out.dtype != torch.uint8 or tuple(out.shape) != (CANVAS_H * 3 // 2, CANVAS_W):
         raise AssertionError(f"bad output {out.dtype} {tuple(out.shape)}")
     if not torch.isfinite(gains).all():
@@ -1447,6 +1476,7 @@ def phase_main_path(mt, t_template, frame_sets):
         "ms_enqueue": ms_enqueue,
         "nc1": {"launches": counts["nc1_bf16"], "err": err},
         "nc2": {"launches": counts["nc2_bf16"], "err": err},
+        "pyramid_launches": sum(pyr_counts.values()),
     }
 
 
@@ -1568,6 +1598,191 @@ def phase_stitch_batch(mapper, frame_sets, ms_stitch):
     if not err < 1e-3:
         raise AssertionError("frames-axis kernel disagrees with its plain version")
     return {"launches": counts["frames_nc1_bf16"] + counts["frames_nc2_bf16"], "err": err}
+
+
+def _pyramid_bytes(plan, c, itemsize):
+    """Bytes that the pyramid kernels of one multiband blend over
+    ``plan`` on C-channel images must move, each read or written once:
+    per image and level i < B a down step (reads level i, writes i + 1)
+    and a Laplacian accumulate (reads level i + 1, level i of the
+    Gaussian, its weight level once for all channels and the band
+    window; writes the window); per canvas level i < B a collapse step
+    (reads the coarser sum, the band level and its inverse weight once
+    for all channels; writes the sum)."""
+    B = plan.num_bands
+    n = 0
+    for _, _, aw, ah in plan.align_rois:
+        for i in range(B):
+            fine, coarse = (ah >> i) * (aw >> i), (ah >> (i + 1)) * (aw >> (i + 1))
+            n += c * (fine + coarse)  # down
+            n += c * coarse + 3 * c * fine + fine  # Laplacian accumulate
+    _, _, arw, arh = plan.align_result_roi
+    for i in range(B):
+        fine, coarse = (arh >> i) * (arw >> i), (arh >> (i + 1)) * (arw >> (i + 1))
+        n += c * coarse + 2 * c * fine + fine  # collapse
+    return n * itemsize
+
+
+@contextlib.contextmanager
+def _pyramid_ops(**ops):
+    """Inside, ``blenders.multiband_blend`` (the blend the Mapper runs)
+    takes its pyramid steps from ``ops`` (``down``, ``up_laplacian``,
+    ``up_collapse``, as ``ops.cuda_pyramid`` has them) in place of
+    ``ops.cuda_pyramid``'s."""
+    from octvr_tpu_torch.stitch import blenders
+
+    real = blenders.cuda_pyramid
+    blenders.cuda_pyramid = types.SimpleNamespace(**ops)
+    try:
+        yield
+    finally:
+        blenders.cuda_pyramid = real
+
+
+def _one_rounding(k, t32):
+    """(share, err): the share of ``k`` (a kernel's store) that differs
+    from the rounding of ``t32`` (the banded product's f32 sum) to k's
+    dtype, and for f32 the max abs difference (0.0 for bf16).  Raises
+    unless every f32 store is within 1e-4 of its sum and every bf16
+    store a rounding of a value within a few f32 ulps of it (the twin's
+    rounding, or its neighbour where the sum sits on an edge)."""
+    if k.dtype == torch.float32:
+        err = (k - t32).abs().max().item()
+        if not err <= 1e-4:
+            raise AssertionError(f"f32 pyramid step off its banded product by {err:.3g}")
+        return 0.0, err
+    half_ulp = torch.exp2(torch.frexp(t32.abs())[1].float() - 9)  # half a bf16 ulp of |t|
+    if not ((k.float() - t32).abs() <= half_ulp + t32.abs() * 2**-18 + 1e-30).all():
+        raise AssertionError("bf16 pyramid step is not a rounding of its banded product")
+    return (k != t32.to(k.dtype)).float().mean().item(), 0.0
+
+
+def _checked_pyramid_ops(checks):
+    """The pyramid kernels, each launch checked against its plain
+    version on the launch's own inputs: a down or up step's store is a
+    rounding of the banded product's f32 sum (``_one_rounding``, whose
+    result goes to ``checks``); the Laplacian accumulate and the collapse
+    equal, bit for bit, the eager ops on the card applied to the plain up
+    step."""
+    from octvr_tpu_torch.ops import cuda_pyramid as cp
+    from octvr_tpu_torch.ops.pyramid import pyr_down_mm, pyr_up_mm
+
+    def down(x, mats):
+        got = cp.down(x, mats)
+        checks.append(_one_rounding(got, pyr_down_mm(x, mats[x.shape[-2]], mats[x.shape[-1]])))
+        return got
+
+    def up(x, mats):
+        got = cp.up(x, mats)
+        checks.append(_one_rounding(got, pyr_up_mm(x, mats[x.shape[-2]], mats[x.shape[-1]])))
+        return got
+
+    def up_laplacian(dst, g, x, w, mats):
+        want = dst + (g - up(x, mats)) * w
+        cp.up_laplacian(dst, g, x, w, mats)
+        if not torch.equal(dst, want):
+            raise AssertionError(f"Laplacian accumulate of {tuple(x.shape)} differs from the eager ops")
+        return dst
+
+    def up_collapse(x, d, s, mats):
+        got = cp.up_collapse(x, d, s, mats)
+        if not torch.equal(got, up(x, mats) + d * s):
+            raise AssertionError(f"collapse step of {tuple(x.shape)} differs from the eager ops")
+        return got
+
+    return {"down": down, "up_laplacian": up_laplacian, "up_collapse": up_collapse}
+
+
+def _profiled_ms(fn, words, calls=5):
+    """Device ms per ``fn()`` from one torch.profiler pass over ``calls``
+    eager calls: (every kernel's, the kernels' whose names hold one of
+    ``words``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events) / calls / 1e3
+    picked = sum(e.self_device_time_total for e in events if any(w in e.key for w in words)) / calls / 1e3
+    return total, picked
+
+
+def phase_pyramid_device_time(mapper):
+    """5d: the pyramid kernels of the 4K Mapper's two blends (Y: 6 bands,
+    C=1; U|V: 5 bands, C=2; bf16), run through ``multiband_blend``, the
+    function the Mapper calls: the kernels' device time per blend
+    (``ms``, torch.profiler), beside their byte bound (``_pyramid_bytes``
+    at 3.35 TB/s) and the plain steps on the card (the banded products
+    and the eager ops, which cuBLAS and torch run: the library yardstick,
+    the parent's path; the plain blend's device time less the blend's
+    other ops); the launches against ``_pyramid_counts``; then, in bf16
+    and in f32 on the same plans and images, every launch against its
+    plain version on its own inputs (``_checked_pyramid_ops``)."""
+    import dataclasses
+
+    from octvr_tpu_torch.ops import cuda_pyramid as cp
+    from octvr_tpu_torch.stitch.blenders import multiband_blend
+
+    log("== 5d. pyramid kernels at the 4K plan's shapes: device ms per blend, byte bound, banded products")
+    plain = {"down": cp.down_reference, "up_laplacian": cp.up_laplacian_reference,
+             "up_collapse": cp.up_collapse_reference}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rows = {}
+    for label, bl, c, canvas in (("Y", mapper.plan.blender, 1, (CANVAS_W, CANVAS_H)),
+                                 ("U|V", mapper.plan.blender_uv, 2, (CANVAS_W // 2, CANVAS_H // 2))):
+        dtype = getattr(torch, bl.compute_dtype)
+        imgs = [(torch.rand((c, h, w), generator=gen, device="cuda") * 255).to(dtype) for _, _, w, h in bl.rois]
+
+        def blend(plan=bl, imgs=imgs, canvas=canvas):
+            return multiband_blend(plan, imgs, canvas)
+
+        cp.reset_counts()
+        blend()
+        launches = cp.LAUNCHES
+        blend_ms, ms = _profiled_ms(blend, ("pyr_down_kernel", "pyr_up_kernel"))
+        call_ms = steady_ms(blend)[0]
+        with _pyramid_ops(**plain):
+            plain_ms = _profiled_ms(blend, ())[0]
+        lib_ms = plain_ms - (blend_ms - ms)
+        nbytes = _pyramid_bytes(bl, c, imgs[0].element_size())
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        checks = []
+        with _pyramid_ops(**_checked_pyramid_ops(checks)):
+            blend()
+            bl32 = dataclasses.replace(
+                bl, weight_pyrs=[[w.float() for w in p] for p in bl.weight_pyrs],
+                inv_band_weights=[v.float() for v in bl.inv_band_weights], compute_dtype="float32",
+            )
+            multiband_blend(bl32, [i.float() for i in imgs], canvas)
+        torch.cuda.synchronize()
+        share, err = (max(v) for v in zip(*checks))
+        log(f"  {label}: {launches} launches, kernels {ms:.4f} ms of the blend's {blend_ms:.4f} device ms, "
+            f"call {call_ms:.4f} ms; {nbytes / 1e6:.1f} MB, bound {bound_ms:.4f} ms, share {bound_ms / ms:.3f}; "
+            f"banded products and eager ops {lib_ms:.4f} ms ({lib_ms / ms:.1f}x; the plain blend {plain_ms:.4f}); "
+            f"{len(checks)} steps in bf16 and f32 each a rounding of its banded product: bf16 at most "
+            f"{share:.2e} of a step's outputs off the twin's rounding (bar <= 1e-3), f32 max abs err {err:.3g} "
+            f"(bar <= 1e-4); epilogues equal to the eager ops")
+        if not share <= 1e-3:
+            raise AssertionError(f"pyramid kernels round apart from the banded products at the 4K {label} plan")
+        if not bound_ms < ms:
+            raise AssertionError(f"the {label} pyramid kernels beat their byte bound: bytes or time miscounted")
+        rows[label] = {"launches": launches, "err": err, "ms": ms, "call_ms": call_ms, "plain_ms": lib_ms,
+                       "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms}
+        del imgs
+    launches = rows["Y"]["launches"] + rows["U|V"]["launches"]
+    if launches != sum(_pyramid_counts(mapper.plan).values()):
+        raise AssertionError(f"{launches} pyramid launches in the two blends, expected {_pyramid_counts(mapper.plan)}")
+    total = {k: rows["Y"][k] + rows["U|V"][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms")}
+    total.update(err=max(r["err"] for r in rows.values()), bound_by="bytes")
+    log(f"  a set's two blends: kernels {total['ms']:.4f} device ms, bound {total['bound_ms']:.4f} ms, share "
+        f"{total['bound_ms'] / total['ms']:.3f}; banded products and eager ops {total['library_ms']:.4f} ms")
+    return total
 
 
 def build_sharded_4k(mt, pipeline="yuv420"):
@@ -3245,6 +3460,7 @@ def distributed_only(smi):
 
 _KERNEL_CLASSES = (
     ("remap (csrc/remap.cu)", ("remap_kernel", "remap_frames_kernel")),
+    ("pyramid (csrc/pyramid.cu)", ("pyr_down_kernel", "pyr_up_kernel")),
     ("matmul (pyramid, pooling)", ("gemm", "xmma", "cutlass")),
     ("dtype casts and copies", ("copy",)),
     ("reductions (gain sums)", ("reduce",)),
@@ -3332,6 +3548,7 @@ def main(argv):
     rgb = phase_rgb_path(mt, frame_sets)
     mapper = main_path.pop("mapper")
     batch = phase_stitch_batch(mapper, frame_sets, main_path["ms_frame"])
+    pyramid = phase_pyramid_device_time(mapper)
     sharded = phase_sharded(host, t_host, frame_sets, main_path)
     sharded_sm = sharded.pop("sm")
     sharded_rgb = phase_sharded_rgb(host_rgb, t_host_rgb, frame_sets, rgb)
@@ -3378,6 +3595,9 @@ def main(argv):
         + ", ".join(f"{v:.3f}" for v in distributed["10b"]) + "; 10c (2, 2) grid "
         + ", ".join(f"{v:.3f}" for v in distributed["10c"]) + f"; 10f multihost_stitch frames/s "
         + ", ".join(f"{v}" for v in distributed["10f"]) + f"; phase 6 {distributed['p6_ms']:.3f}")
+    log(f"4K pyramid kernels (5d), a set's two blends: device {pyramid['ms']:.4f} ms (share of bound "
+        f"{pyramid['bound_ms'] / pyramid['ms']:.3f}); call {pyramid['call_ms']:.4f}; banded products "
+        f"{pyramid['library_ms']:.4f}; {main_path['pyramid_launches'] // (ITERS + 1)} launches a set")
     log("4K remap launches: device ms (share of bound); call ms; grid_sample device ms")
     for key, t in times.items():
         log(f"  {key:22s} {t['ms']:.5f} ({t['bound_ms'] / t['ms']:.3f}); call {t['call_ms']:.5f}; "
@@ -3403,6 +3623,9 @@ def main(argv):
          timed(sharded, "sharded_nc1_bf16", "sharded_nc2_bf16"), err_concat),
         ("remap concat-source NC=3 (band-sharded rgb, source windows), kernel 6", src, f"{pr}:1249",
          timed(sharded_rgb, "sharded_nc3_bf16"), err_concat_nc3),
+        ("pyramid steps of the multiband blends (4K yuv420: Y 6 bands + U|V 5 bands, bf16), kernel 9",
+         "octvr_tpu_torch/csrc/pyramid.cu", "octvr_tpu/ops/pyramid.py pyr_down_mm/pyr_up_mm (banded XLA products)",
+         {**pyramid, "launches": main_path["pyramid_launches"]}, 0.0),
         ("MXU-taps probe A, gather from the step's window staged in shared memory, plan in 16 B vectors "
          "(fan), kernel 8", taps_src, f"{probe}:100", taps["fan"], 0.0),
         ("MXU-taps probe B, folded f32 weights as three bf16 wgmma products, A from registers, kernel 8",

@@ -11,18 +11,16 @@ a plain stack of planes or a flat run of source blocks (ops/remap.py
 ``COUNTS`` per variant (``"nc3_bf16"``, ``"frames_nc1_bf16"``,
 ``"concat_nc1_bf16"``, ``"frames_concat_nc2_bf16"``, ...; "concat" when
 the inputs read camera-row slices), so a run can show that each of its
-paths went through its kernel.  A launch captured into a CUDA graph
-runs only when the graph is replayed: ``deferred_counts`` collects a
-capture's launches apart, and ``add_counts`` counts them at each replay.
+paths went through its kernel; a launch captured into a CUDA graph is
+counted at each replay (``launch_counts``).
 """
 
 import ctypes
-import threading
-from contextlib import contextmanager
 
 import torch
 
 from ..utils.build import load_library
+from .launch_counts import Counter
 from .remap import (
     RemapGroup,
     flat_source,
@@ -34,16 +32,17 @@ from .remap import (
 __all__ = [
     "COUNTS",
     "LAUNCHES",
-    "add_counts",
-    "deferred_counts",
     "launch_flat",
     "remap_apply",
     "remap_apply_frames",
     "reset_counts",
 ]
 
-LAUNCHES = 0
-COUNTS = {}
+_COUNTER = Counter()
+COUNTS = _COUNTER.counts
+reset_counts = _COUNTER.reset  # set every count to 0
+__getattr__ = _COUNTER.module_getattr(__name__)  # LAUNCHES: the launches in all
+
 
 _OUT_TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _PTRS = [ctypes.c_void_p] * 8
@@ -58,41 +57,6 @@ _ARGTYPES = {
 }
 _ENTRIES = {}  # (nc, out dtype, frames) -> ctypes function
 _INVALID_VALUE = 1  # cudaErrorInvalidValue: a shape the kernels refuse
-_LOCAL = threading.local()  # .sink: the dict of an open deferred_counts
-
-
-def reset_counts():
-    """Set ``LAUNCHES`` and every count in ``COUNTS`` to 0."""
-    global LAUNCHES
-    LAUNCHES = 0
-    COUNTS.clear()
-
-
-def add_counts(counts):
-    """Counts launches ({variant: launches}) in ``LAUNCHES`` and
-    ``COUNTS``, or, inside ``deferred_counts`` on this thread, in its
-    dict."""
-    global LAUNCHES
-    sink = getattr(_LOCAL, "sink", None)
-    for key, n in counts.items():
-        if sink is None:
-            COUNTS[key] = COUNTS.get(key, 0) + n
-            LAUNCHES += n
-        else:
-            sink[key] = sink.get(key, 0) + n
-
-
-@contextmanager
-def deferred_counts():
-    """Launches made inside, on this thread, go to the yielded dict
-    ({variant: launches}) and not to ``LAUNCHES`` and ``COUNTS``: a
-    graph's capture, whose launches run at its replays."""
-    prev = getattr(_LOCAL, "sink", None)
-    _LOCAL.sink = counts = {}
-    try:
-        yield counts
-    finally:
-        _LOCAL.sink = prev
 
 
 def _entry(nc: int, out_dtype, frames: bool):
@@ -148,7 +112,7 @@ def launch_flat(src, plan: RemapGroup, out_dtype=torch.float32, frames: bool = F
     if err != 0:
         raise RuntimeError(f"remap kernel launch failed: CUDA error {err}")
     key = f"{'frames_' if frames else ''}{'concat_' if plan.concat else ''}nc{nc}_{_OUT_TAGS[out_dtype]}"
-    add_counts({key: 1})
+    _COUNTER.add({key: 1})
     return out, nc
 
 

@@ -58,6 +58,7 @@ import ctypes
 import torch
 
 from ..utils.build import load_library
+from .launch_counts import Counter
 from .pyramid import require_full_f32
 
 __all__ = [
@@ -84,15 +85,10 @@ MAX_VISITED = 112  # visited rows the product kernels take (one instance per 16)
 MAX_STAGED = 112  # visited rows the fan's kernel stages in shared memory (kMaxStaged)
 _PLAIN_PIXELS = 1 << 19  # output pixels per chunk of the plain products (V: 256 MB)
 
-LAUNCHES = 0
-COUNTS = {}
-
-
-def reset_counts():
-    """Set ``LAUNCHES`` and every count in ``COUNTS`` to 0."""
-    global LAUNCHES
-    LAUNCHES = 0
-    COUNTS.clear()
+_COUNTER = Counter()
+COUNTS = _COUNTER.counts
+reset_counts = _COUNTER.reset  # set every count to 0
+__getattr__ = _COUNTER.module_getattr(__name__)  # LAUNCHES: the launches in all
 
 
 def visited_rows(lo: int, hi: int):
@@ -260,9 +256,7 @@ def _launch(body, oyl, fxy, win, lo, hi):
         )
     if err != 0:
         raise RuntimeError(f"taps_{body} kernel launch failed: CUDA error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
-    COUNTS[f"taps_{body}"] = COUNTS.get(f"taps_{body}", 0) + 1
+    _COUNTER.add({f"taps_{body}": 1})
     return list(out.unbind(0))
 
 

@@ -44,9 +44,10 @@ import torch
 import torch.distributed as dist
 from scipy.ndimage import distance_transform_edt
 
+from ..ops import cuda_pyramid
 from ..ops.color import merge_nv12, merge_yuv420p, planes_to_rgb_planar, rgb_planar_to_planes
 from ..ops.cuda_remap import remap_apply, remap_apply_frames
-from ..ops.pyramid import down_matrix, pyr_down_mm, pyr_up_mm, require_full_f32, up_matrix
+from ..ops.pyramid import down_matrix, require_full_f32, up_matrix
 from ..ops.remap import concat_source, remap_group, remap_plan
 from ..ops.resize import resize_bilinear_host
 from ..stitch.blenders import WEIGHT_EPS, np_pyr_down
@@ -1430,12 +1431,10 @@ class ShardedMapper:
         cdt = self._remap_dtype()
 
         def down(z):
-            hh, ww = z.shape[-2:]
-            return pyr_down_mm(z, plan.down_mats[hh], plan.down_mats[ww]).to(cdt)
+            return cuda_pyramid.down(z, plan.down_mats)
 
         def up(z):
-            hh, ww = z.shape[-2:]
-            return pyr_up_mm(z, plan.up_mats[hh], plan.up_mats[ww]).to(cdt)
+            return cuda_pyramid.up(z, plan.up_mats)
 
         if coarse is not None:
             return self._blend_windows_split(imgs, wins, weight_pyrs, inv_bw, B, ext_v, W_v, down, up, cdt, coarse)

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 from scipy.ndimage import correlate1d, distance_transform_edt
 
-from ..ops.pyramid import down_matrix, pyr_down_mm, pyr_up_mm, up_matrix
+from ..ops import cuda_pyramid
+from ..ops.pyramid import down_matrix, up_matrix
 from ..utils.device import tree_to
 
 _K5 = np.array([1.0, 4.0, 6.0, 4.0, 1.0], dtype=np.float32) / 16.0
@@ -197,23 +198,18 @@ def build_multiband_plan(
 def multiband_blend(plan: MultiBandPlan, imgs, canvas_size):
     """imgs: [C, rh, rw] warped images (roi-sized), any float dtype.
     ``plan`` is a device plan (MultiBandPlan.to).  Builds per-image
-    Laplacian pyramids in ``plan.compute_dtype`` (each banded product in
-    f32, cast back after it), accumulates the weighted bands, normalizes
-    and collapses (blenders.cpp:676-736).  Returns an f32 [C, H, W]
-    canvas."""
+    Laplacian pyramids in ``plan.compute_dtype``, accumulates the
+    weighted bands, normalizes and collapses (blenders.cpp:676-736).
+    The pyramid steps are ``ops.cuda_pyramid``'s: on the CPU the banded
+    products (each in f32, cast back after it) and eager ops, on the card
+    the stencil kernels with the Laplacian accumulate and the collapse's
+    normalize-and-add fused in, rounding to the compute dtype after each
+    op alike.  Returns an f32 [C, H, W] canvas."""
     B = plan.num_bands
     arx, ary, arw, arh = plan.align_result_roi
     c = imgs[0].shape[0]
     dtype = _DTYPES[plan.compute_dtype]
     dev = imgs[0].device
-
-    def down(z):
-        _, hh, ww = z.shape
-        return pyr_down_mm(z, plan.down_mats[hh], plan.down_mats[ww]).to(dtype)
-
-    def up(z):
-        _, hh, ww = z.shape
-        return pyr_up_mm(z, plan.up_mats[hh], plan.up_mats[ww]).to(dtype)
 
     dst_pyr = [
         torch.zeros((c, arh >> i, arw >> i), dtype=dtype, device=dev)
@@ -226,20 +222,18 @@ def multiband_blend(plan: MultiBandPlan, imgs, canvas_size):
         src0[:, y - ay : y - ay + h, x - ax : x - ax + w] = img.to(dtype)
         gauss = [src0]
         for _ in range(B):
-            gauss.append(down(gauss[-1]))
+            gauss.append(cuda_pyramid.down(gauss[-1], plan.down_mats))
         for i in range(B + 1):
-            lap = gauss[i] - up(gauss[i + 1]) if i < B else gauss[B]
             ox, oy = (ax - arx) >> i, (ay - ary) >> i
-            dst_pyr[i][:, oy : oy + (ah >> i), ox : ox + (aw >> i)] += (
-                lap * wpyr[i][None]
-            )
+            dst = dst_pyr[i][:, oy : oy + (ah >> i), ox : ox + (aw >> i)]
+            if i < B:
+                cuda_pyramid.up_laplacian(dst, gauss[i], gauss[i + 1], wpyr[i], plan.up_mats)
+            else:
+                dst += gauss[B] * wpyr[B][None]
 
-    for i in range(B + 1):
-        dst_pyr[i] = dst_pyr[i] * plan.inv_band_weights[i][None]
-
-    acc = dst_pyr[B]
+    acc = dst_pyr[B] * plan.inv_band_weights[B][None]
     for i in range(B - 1, -1, -1):
-        acc = up(acc) + dst_pyr[i]
+        acc = cuda_pyramid.up_collapse(acc, dst_pyr[i], plan.inv_band_weights[i], plan.up_mats)
 
     w, h = canvas_size
     canvas = torch.zeros((c, h, w), dtype=torch.float32, device=dev)

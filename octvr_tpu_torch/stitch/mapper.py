@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 
-from ..ops import cuda_remap
+from ..ops import launch_counts
 from ..ops.color import (
     merge_nv12,
     merge_yuv420p,
@@ -411,9 +411,9 @@ def _paste(canvas, img, roi, mask):
 class _StitchGraph:
     """One CUDA graph of ``Mapper._stitch_eager`` for one call signature
     (gains solved, or given): the static inputs it reads, the outputs it
-    writes, the remap launches it holds, and an event after its last
-    replay, which a replay on another stream waits for before it
-    rewrites the inputs."""
+    writes, the kernel launches it holds, and an event after its last
+    replay, which a replay on another stream waits for before it rewrites
+    the inputs."""
 
     def __init__(self, mapper, bufs, gains, stream):
         """Captures the path on ``stream`` over static inputs shaped as
@@ -425,7 +425,7 @@ class _StitchGraph:
         self.inputs = [torch.empty(tuple(b.shape), dtype=torch.uint8, device=dev) for b in bufs]
         self.gains = None if gains is None else torch.empty_like(gains)
         self.graph = torch.cuda.CUDAGraph()
-        with cuda_remap.deferred_counts() as self.launches:
+        with launch_counts.deferred() as self.launches:
             with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
                 self.out, self.out_gains = mapper._stitch_planned(self.inputs, self.gains)
         self.done = torch.cuda.Event()
@@ -452,7 +452,7 @@ class _StitchGraph:
             out = self.out.clone(), self.out_gains.clone()
             self.done.record(stream)
             self.stream = stream
-            cuda_remap.add_counts(self.launches)
+            launch_counts.replay(self.launches)
         return out
 
 

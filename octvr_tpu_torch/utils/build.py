@@ -4,7 +4,8 @@ The sources fall in two groups, each built into a shared library of its
 own with a plain C interface and loaded with ``ctypes`` by name
 (``load_library(group)``):
 
-- ``product``: ``remap.cu``, the remap kernels of every stitch path;
+- ``product``: ``remap.cu``, the remap kernels of every stitch path, and
+  ``pyramid.cu``, the multiband blend's pyramid steps;
 - ``tools``: ``mxu_taps.cu``, the MXU-taps probe's kernels (an
   instrument, off every product path).
 
@@ -29,7 +30,7 @@ __all__ = ["GROUPS", "NVCC_FLAGS", "build_dir", "library_path", "load_library"]
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 
-GROUPS = {"product": ("remap.cu",), "tools": ("mxu_taps.cu",)}
+GROUPS = {"product": ("remap.cu", "pyramid.cu"), "tools": ("mxu_taps.cu",)}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

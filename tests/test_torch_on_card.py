@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from octvr_tpu_torch.ops import cuda_remap, mxu_taps
+from octvr_tpu_torch.ops import cuda_pyramid, cuda_remap, mxu_taps
+from octvr_tpu_torch.ops.pyramid import down_matrix, pyr_down_mm, pyr_up_mm, up_matrix
 from octvr_tpu_torch.ops.remap import (
     concat_source,
     remap_apply_reference,
@@ -29,9 +30,10 @@ from octvr_tpu_torch.ops.remap import (
     split_frame_outputs,
 )
 from octvr_tpu_torch.parallel import ShardedMapper, make_mesh
-from octvr_tpu_torch.stitch import FastMapper, Mapper
+from octvr_tpu_torch.stitch import FastMapper, Mapper, blenders
 from octvr_tpu_torch.template import compile_rig
 from octvr_tpu_torch.tools.mxu_taps_probe import make_probe_inputs
+from blend_fixtures import CANVAS, blend_scene
 from remap_fixtures import H_B, IN_H, IN_W, LO, arc_maps, concat_maps, edge_maps, ragged_maps
 from rigs import two_fisheye_rig
 from taps_fixtures import edge_probe_inputs
@@ -184,11 +186,166 @@ def test_graph_replay_equals_eager(cuda_device):
         assert torch.equal(o, e)
 
 
-def _small_rig(device):
+# pyramid kernels (csrc/pyramid.cu): the input shapes [C, n_h, n_w] of
+# each step, tiny, even and odd, and the 4K canvas (the largest length of
+# its plans: the collapse's last up step writes it)
+PYR_DOWN_SHAPES = [(2, 2), (3, 5), (5, 3), (64, 96), (67, 131), (130, 258), (1920, 3840)]
+PYR_UP_SHAPES = [(1, 1), (2, 3), (5, 2), (33, 65), (64, 128), (960, 1920)]
+PYR_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _pyr_inputs(device, c, shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(0, 255, (c, *shape)).astype(np.float32))
+    return x.to(device=device, dtype=dtype)
+
+
+def _one_rounding(k, t32):
+    """Each of ``k`` (the kernel's store) is a rounding to k's dtype of a
+    value within a few f32 ulps of ``t32`` (the banded product's f32 sum):
+    f32 within 1e-4; bf16 the twin's rounding, or its neighbour where the
+    sum sits on a rounding edge.  Returns the share that differs from the
+    twin's rounding."""
+    if k.dtype == torch.float32:
+        assert (k - t32).abs().max().item() <= 1e-4
+        return 0.0
+    e = torch.frexp(t32.abs())[1].float()
+    half_ulp = torch.exp2(e - 9)  # half a bf16 ulp of |t| in [2^(e-1), 2^e)
+    assert ((k.float() - t32).abs() <= half_ulp + t32.abs() * 2**-18 + 1e-30).all()
+    return (k != t32.to(k.dtype)).float().mean().item()
+
+
+@pytest.mark.parametrize("dtype", sorted(PYR_DTYPES))
+@pytest.mark.parametrize("c", [1, 2, 3])
+@pytest.mark.parametrize("shape", PYR_DOWN_SHAPES, ids=[f"{h}x{w}" for h, w in PYR_DOWN_SHAPES])
+def test_pyr_down_kernel_matches_twin_on_card(cuda_device, shape, c, dtype):
+    """One pyr_down_kernel launch against the banded products (the twin,
+    on the card) on inputs in [0, 255]: f32 within 1e-4, bf16 one
+    rounding of the twin's f32 sum (rarely the other neighbour)."""
+    x = _pyr_inputs(cuda_device, c, shape, PYR_DTYPES[dtype], 60 + c)
+    mats = {n: torch.from_numpy(down_matrix(n)).to(cuda_device) for n in set(shape)}
+    cuda_pyramid.reset_counts()
+    got = cuda_pyramid.down(x, mats)
+    assert cuda_pyramid.COUNTS == {f"down_c{c}_{dtype}": 1}
+    t32 = pyr_down_mm(x, mats[shape[0]], mats[shape[1]])
+    assert got.dtype == x.dtype and got.shape == t32.shape == (c, shape[0] // 2, shape[1] // 2)
+    assert _one_rounding(got, t32) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", sorted(PYR_DTYPES))
+@pytest.mark.parametrize("c", [1, 2, 3])
+@pytest.mark.parametrize("shape", PYR_UP_SHAPES, ids=[f"{h}x{w}" for h, w in PYR_UP_SHAPES])
+def test_pyr_up_kernel_matches_twin_on_card(cuda_device, shape, c, dtype):
+    """The up kernel's three epilogues.  Plain: against the banded
+    products as the down step.  The Laplacian accumulate (into a strided
+    window of a larger level) and the collapse: equal, bit for bit, to
+    the eager torch ops on the card applied to the plain launch's
+    output, and nothing outside the window written."""
+    dt = PYR_DTYPES[dtype]
+    x = _pyr_inputs(cuda_device, c, shape, dt, 70 + c)
+    h2, w2 = 2 * shape[0], 2 * shape[1]
+    mats = {n: torch.from_numpy(up_matrix(n)).to(cuda_device) for n in set(shape)}
+    cuda_pyramid.reset_counts()
+    u = cuda_pyramid.up(x, mats)
+    t32 = pyr_up_mm(x, mats[shape[0]], mats[shape[1]])
+    assert u.dtype == dt and u.shape == t32.shape == (c, h2, w2)
+    assert _one_rounding(u, t32) <= 1e-3
+
+    g = _pyr_inputs(cuda_device, c, (h2, w2), dt, 80 + c)
+    w = (_pyr_inputs(cuda_device, 1, (h2, w2), dt, 90)[0] / 255).to(dt)
+    level = _pyr_inputs(cuda_device, c, (h2 + 5, w2 + 7), dt, 100 + c)
+    before = level.clone()
+    dst = level[:, 3 : 3 + h2, 4 : 4 + w2]
+    want = dst + (g - u) * w
+    cuda_pyramid.up_laplacian(dst, g, x, w, mats)
+    assert torch.equal(dst, want)
+    level[:, 3 : 3 + h2, 4 : 4 + w2] = before[:, 3 : 3 + h2, 4 : 4 + w2]
+    assert torch.equal(level, before)
+
+    got = cuda_pyramid.up_collapse(x, g, w, mats)
+    assert torch.equal(got, u + g * w)
+    assert cuda_pyramid.COUNTS == {f"{v}_c{c}_{dtype}": 1 for v in ("up", "up_lap", "up_add")}
+
+
+def test_pyramid_wrappers_raise_on_inputs_they_do_not_take(cuda_device):
+    """A length the kernels refuse raises (nothing launched); so do
+    operands of another dtype or device, a window whose rows are not one
+    stride, and a dtype the kernels do not have."""
+    mats = {n: torch.from_numpy(down_matrix(n)).to(cuda_device) for n in (4,)}
+    cuda_pyramid.reset_counts()
+    with pytest.raises(RuntimeError, match="refused"):
+        cuda_pyramid.down(torch.zeros((1, 1, 4), device=cuda_device), mats)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cuda_pyramid.down(torch.zeros((1, 4, 4), dtype=torch.float16, device=cuda_device), mats)
+    x = torch.zeros((2, 2, 2), device=cuda_device)
+    g = torch.zeros((2, 4, 4), device=cuda_device)
+    w = torch.zeros((4, 4), device=cuda_device)
+    up = {2: torch.from_numpy(up_matrix(2)).to(cuda_device)}
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_pyramid.up_laplacian(g.clone(), g.to(torch.bfloat16), x, w, up)
+    with pytest.raises(ValueError, match="holds 1 planes"):
+        cuda_pyramid.up_laplacian(torch.zeros((4, 4), device=cuda_device), g, x, w, up)
+    with pytest.raises(ValueError, match="one stride"):
+        cuda_pyramid.up_laplacian(torch.zeros((2, 2, 4, 4), device=cuda_device).transpose(0, 1), g, x, w, up)
+    assert cuda_pyramid.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seed,c", [(0, 1), (1, 2), (3, 1), (4, 2), (5, 3)])
+def test_multiband_blend_on_card_matches_cpu(cuda_device, seed, c, dtype):
+    """multiband_blend through the pyramid kernels against the port on
+    the CPU (the banded products): f32 within 1e-3 (the JAX package's
+    bar), bf16 within the bf16 bars (mean < 1.5, 99th percentile < 6)
+    of the CPU's bf16 and of its f32; a blend of B bands launches B
+    downs and B Laplacian accumulates per image and B collapse steps."""
+    masks, rois, imgs, bands = blend_scene(seed, c=c)
+    plan = blenders.build_multiband_plan(masks, rois, bands, CANVAS, dtype=dtype)
+    ref = blenders.multiband_blend(plan.to("cpu"), [torch.from_numpy(i) for i in imgs], CANVAS)
+    dplan = plan.to(cuda_device)
+    cuda_pyramid.reset_counts()
+    got = blenders.multiband_blend(dplan, [torch.from_numpy(i).to(cuda_device) for i in imgs], CANVAS).cpu()
+    tag = "bf16" if dtype == "bfloat16" else "f32"
+    n = len(imgs)
+    assert cuda_pyramid.COUNTS == {f"down_c{c}_{tag}": n * bands, f"up_lap_c{c}_{tag}": n * bands,
+                                   f"up_add_c{c}_{tag}": bands}
+    if dtype == "float32":
+        assert (got - ref).abs().max().item() < 1e-3
+        return
+    ref32 = blenders.multiband_blend(
+        blenders.build_multiband_plan(masks, rois, bands, CANVAS).to("cpu"), [torch.from_numpy(i) for i in imgs], CANVAS
+    )
+    for r in (ref, ref32):
+        d = (got - r).abs()
+        assert d.mean().item() < 1.5 and torch.quantile(d.flatten(), 0.99).item() < 6.0
+
+
+def test_pyramid_path_runs_no_matmul_on_card(cuda_device, monkeypatch):
+    """On the card the multiband blend calls no matrix product at all,
+    and the band-sharded window blends never reach the banded products:
+    both go through the pyramid kernels."""
+    def refuse(*a, **k):
+        raise AssertionError("a matrix product on the card's pyramid path")
+
+    masks, rois, imgs, bands = blend_scene(1, c=2)
+    dplan = blenders.build_multiband_plan(masks, rois, bands, CANVAS, dtype="bfloat16").to(cuda_device)
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "matmul", refuse)
+        blenders.multiband_blend(dplan, [torch.from_numpy(i).to(cuda_device) for i in imgs], CANVAS)
+    monkeypatch.setattr(cuda_pyramid, "pyr_down_mm", refuse)
+    monkeypatch.setattr(cuda_pyramid, "pyr_up_mm", refuse)
+    mt, sizes, frames = _small_rig(cuda_device)
+    sm = ShardedMapper(mt, sizes, make_mesh(1, 2, device=cuda_device), blend=16, enable_gain=True)
+    cuda_pyramid.reset_counts()
+    sm.stitch_batch([torch.from_numpy(f[None]).to(cuda_device) for f in frames])
+    torch.cuda.synchronize()
+    assert {k.split("_c")[0] for k in cuda_pyramid.COUNTS} == {"down", "up"}
+
+
+def _small_rig(device, canvas=(256, 128)):
     rig = two_fisheye_rig()
     for s in rig["inputs"]:
         s["options"]["width"] = s["options"]["height"] = 256
-    mt = compile_rig(rig, 256, 128)
+    mt = compile_rig(rig, *canvas)
     mt.create_masks()
     rng = np.random.default_rng(1)
     return mt, [(256, 256)] * 2, [rng.integers(0, 256, (384, 256), dtype=np.uint8) for _ in range(2)]
@@ -250,7 +407,8 @@ def test_replay_equals_eager_on_card(cuda_device, case):
     later ones replay it) equals ``_stitch_eager`` bit for bit on four
     distinct sets, host and device frames alternately; the first call
     opens ``mapper.capture`` and the later ones ``mapper.replay``; a
-    replay counts the remap launches of one eager call."""
+    replay counts the remap and pyramid launches of one eager call (a
+    feather blend has none of the latter)."""
     from octvr_tpu_torch.runtime.timer import RECORDER
 
     m = _graph_mapper(cuda_device, case)
@@ -269,11 +427,14 @@ def test_replay_equals_eager_on_card(cuda_device, case):
         eo, eg = m._stitch_eager(s, gains=_case_gains(case, k, cuda_device))
         assert torch.equal(o, eo) and torch.equal(g, eg), k
     cuda_remap.reset_counts()
+    cuda_pyramid.reset_counts()
     m._stitch_eager(sets[0], gains=_case_gains(case, 0, cuda_device))
-    eager = dict(cuda_remap.COUNTS)
+    eager, eager_pyr = dict(cuda_remap.COUNTS), dict(cuda_pyramid.COUNTS)
     cuda_remap.reset_counts()
+    cuda_pyramid.reset_counts()
     m.stitch(sets[0], gains=_case_gains(case, 0, cuda_device))
     assert eager and cuda_remap.COUNTS == eager
+    assert bool(eager_pyr) == (case != "fast_nv12") and cuda_pyramid.COUNTS == eager_pyr
 
 
 def _bench_cap(size=192):
@@ -379,8 +540,12 @@ def test_pipeline_over_graphed_mappers_on_card(cuda_device):
 def test_tf32_after_capture_still_raises_on_card(cuda_device):
     """A process that allows TF32 matmuls after the graph was captured
     gets the same RuntimeError from a replayed stitch as from an eager
-    one."""
-    m = _graph_mapper(cuda_device, "yuv420")
+    one.  On the card the pyramid steps run no matrix product, so the
+    canvas is 768x384: its 0.1 MP working grid pools at stride 2, and the
+    gain stage's pooling product (``_pool_pow2``) stays in the path."""
+    mt, sizes, _ = _small_rig(cuda_device, (768, 384))
+    m = Mapper(mt, sizes, blend=16, device=cuda_device)
+    assert all(ip.pool_cols is not None for ip in m.plan.inputs)
     (s,) = _pipeline_sets(1, seed=54)
     m.stitch(s)
     m.stitch(s)

@@ -147,25 +147,32 @@ def test_remap_wrapper_takes_plain_version_on_cpu():
 
 
 def test_deferred_counts_hold_a_capture_apart():
-    """Launches counted inside ``deferred_counts`` go to its dict, on its
-    thread alone; ``add_counts`` of that dict counts them again at each
-    replay of the graph that holds them."""
+    """Launches counted inside ``launch_counts.deferred`` go to its dict,
+    for every kernel family and on its thread alone; ``replay`` of that
+    dict counts them again at each replay of the graph that holds them."""
     import threading
 
+    from octvr_tpu_torch.ops import cuda_pyramid, launch_counts
+
     before, counts = cuda_remap.LAUNCHES, dict(cuda_remap.COUNTS)
-    with cuda_remap.deferred_counts() as held:
-        cuda_remap.add_counts({"nc1_bf16": 1})
-        cuda_remap.add_counts({"nc1_bf16": 1, "nc2_bf16": 1})
-        other = threading.Thread(target=cuda_remap.add_counts, args=({"nc3_f32": 1},))
+    pyr_before = cuda_pyramid.LAUNCHES
+    with launch_counts.deferred() as held:
+        cuda_remap._COUNTER.add({"nc1_bf16": 1})
+        cuda_remap._COUNTER.add({"nc1_bf16": 1, "nc2_bf16": 1})
+        cuda_pyramid._COUNTER.add({"down_c1_bf16": 1})
+        other = threading.Thread(target=cuda_remap._COUNTER.add, args=({"nc3_f32": 1},))
         other.start()
         other.join(timeout=10)
         assert not other.is_alive()
-    assert held == {"nc1_bf16": 2, "nc2_bf16": 1}
+    assert held == {cuda_remap._COUNTER: {"nc1_bf16": 2, "nc2_bf16": 1},
+                    cuda_pyramid._COUNTER: {"down_c1_bf16": 1}}
     assert cuda_remap.LAUNCHES == before + 1 and cuda_remap.COUNTS.get("nc3_f32", 0) == counts.get("nc3_f32", 0) + 1
+    assert cuda_pyramid.LAUNCHES == pyr_before
     for _ in range(2):
-        cuda_remap.add_counts(held)
+        launch_counts.replay(held)
     assert cuda_remap.LAUNCHES == before + 7
     assert cuda_remap.COUNTS["nc1_bf16"] == counts.get("nc1_bf16", 0) + 4
+    assert cuda_pyramid.LAUNCHES == pyr_before + 2
 
 
 def test_pyramid_matrices_bit_equal():
