@@ -690,7 +690,7 @@ def phase_kernel_concat(host, frame_sets):
     log(f"  4K band-sharded plan, band {band} of {host.S}: source heights {host.src_h}, "
         f"rows from {host.src_row0[band].tolist()}")
     bufs = sm._frames_to_device([torch.stack(f) for f in zip(*frame_sets[:BATCH])])
-    ys, uvs = sm._prep_band_yuv(bufs)
+    ys, uvs = sm._prep(bufs)
     for nc, parts, plans in ((1, ys, host.remap), (2, uvs, host.remap_uv)):
         group = remap_group([p[band] for p in plans], "cuda", concat=True)
         blocks = [x[:, band if x.shape[1] > 1 else 0] for x in parts]  # [B, C, h, W] each
@@ -735,7 +735,7 @@ def phase_kernel_concat_nc3(host, frame_sets):
     sm, _ = sharded_on_card(host)
     log(f"  4K rgb band-sharded plan, band {band} of {host.S}: source heights {host.src_h}, "
         f"rows from {host.src_row0[band].tolist()}")
-    parts = sm._prep_band_rgb(sm._frames_to_device([f[None] for f in frame_sets[0]]))
+    parts = sm._prep(sm._frames_to_device([f[None] for f in frame_sets[0]]))
     group = remap_group([p[band] for p in host.remap], "cuda", concat=True)
     src = concat_source([x[0, band if x.shape[1] > 1 else 0] for x in parts])
     label = f"4K rgb band {band}, NC=3, {len(host.remap)} inputs"
@@ -1248,7 +1248,7 @@ def phase_small_rig_options():
         if counts16 != {"nc3_f32": 2}:
             raise AssertionError(f"mixed-size rgb bf16 stitch: want 2 f32-store NC=3 launches, got {counts16}")
     # kernel 4 at this path's own launches: each single-input group
-    planes = m._prep_rgb(m._frames_to_device(mframes, batched=False))
+    planes = m._prep([f.to(m.device) for f in m._check_frames(mframes, batched=False)])
     err = 0.0
     for idxs, g in zip(m.plan.group_idx, m.plan.remap_groups):
         stack = torch.stack([planes[i] for i in idxs])
@@ -1453,7 +1453,7 @@ def phase_main_path(mt, t_template, frame_sets):
     # the kernel and its plain version at the main path's own launches
     from octvr_tpu_torch.ops.remap import remap_apply_reference
 
-    ys, uvs = mapper._prep_yuv(frame_sets[0])
+    ys, uvs = mapper._prep(frame_sets[0])
     planes_y = torch.stack(ys)
     planes_uv = torch.stack(uvs)
     gy, guv = mapper.plan.remap_groups[0], mapper.plan.remap_uv_groups[0]
@@ -1523,7 +1523,7 @@ def phase_rgb_path(mt, frame_sets):
         raise AssertionError("non-finite gains or a constant Y plane")
     log(f"  gains {[round(g, 5) for g in gains.tolist()]}")
 
-    planes = torch.stack(mapper._prep_rgb(sets[0]))
+    planes = torch.stack(mapper._prep(sets[0]))
     group = mapper.plan.remap_groups[0]
     k = cuda_remap.remap_apply(planes, group, torch.float32)
     r = remap_apply_reference(planes, group, torch.float32)
@@ -1587,7 +1587,7 @@ def phase_stitch_batch(mapper, frame_sets, ms_stitch):
         raise AssertionError("stitch_batch gains differ from stitch's")
 
     # the frames-axis launches against their plain version, at B frames
-    preps = [mapper._prep_yuv(fs) for fs in sets[:BATCH]]
+    preps = [mapper._prep(fs) for fs in sets[:BATCH]]
     err = 0.0
     for k, group in ((0, mapper.plan.remap_groups[0]), (1, mapper.plan.remap_uv_groups[0])):
         planes = torch.stack([torch.stack(p[k]) for p in preps])
@@ -1885,7 +1885,7 @@ def phase_sharded(host, t_host, frame_sets, main_path):
 
     # kernel 6 at this path's own launches: every (input, band) pair
     bufs = sm._frames_to_device(one[0])
-    ys, uvs = sm._prep_band_yuv(bufs)
+    ys, uvs = sm._prep(bufs)
     err = 0.0
     for parts, group in ((ys, sm.plan.remap), (uvs, sm.plan.remap_uv)):
         src = concat_source(parts, frames=True)[0]
@@ -1953,7 +1953,7 @@ def phase_sharded_rgb(host, t_host, frame_sets, rgb_path):
         raise AssertionError("sharded 4K rgb path disagrees with the rgb Mapper")
 
     # kernel 6 at NC=3 at this path's own launch: every (input, band) pair
-    parts = sm._prep_band_rgb(sm._frames_to_device(one[0]))
+    parts = sm._prep(sm._frames_to_device(one[0]))
     src = concat_source(parts, frames=True)[0]
     group = sm.plan.remap
     k = cuda_remap.remap_apply(src, group, torch.float32)

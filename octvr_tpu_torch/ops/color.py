@@ -4,7 +4,8 @@ of the rgb pipeline (octvr_tpu/ops/color.py).
 Frame layout (mapper.hpp:75-83 of the reference): one [H*3/2, W] uint8
 buffer; Y is the top HxW, U is rows [H, H*3/2) cols [0, W/2), V is rows
 [H, H*3/2) cols [W/2, W).  NV12 keeps Y on top and interleaves U and V
-below it (UVUV rows, mapper_fast.cpp:153-176).
+below it (UVUV rows, mapper_fast.cpp:153-176).  The split and merge
+take any leading dims, [..., H*3/2, W] <-> [..., H, W] planes.
 
 YUV matrices: full-range BT.601 (JPEG), the JAX package's f32
 expressions term for term, so values that round at .5 fall the same
@@ -20,6 +21,7 @@ The interleaved conversions of the CLIs ([H, W, 3] RGB, packed UYVY
 import torch
 
 __all__ = [
+    "merge_frame",
     "merge_nv12",
     "merge_uyvy",
     "merge_yuv420p",
@@ -29,6 +31,7 @@ __all__ = [
     "rgb_planar_to_yuv420p",
     "rgb_to_nv12",
     "rgb_to_yuv420p",
+    "split_frame",
     "split_nv12",
     "split_uyvy",
     "split_yuv420p",
@@ -39,26 +42,41 @@ __all__ = [
 
 
 def split_yuv420p(buf):
-    """[H*3/2, W] packed -> (Y [H,W], U [H/2,W/2], V [H/2,W/2]) views."""
-    h = buf.shape[0] * 2 // 3
-    w = buf.shape[1]
-    return buf[:h], buf[h:, : w // 2], buf[h:, w // 2 :]
+    """[..., H*3/2, W] packed -> (Y [..., H, W], U, V [..., H/2, W/2])
+    views."""
+    h = buf.shape[-2] * 2 // 3
+    w = buf.shape[-1]
+    return buf[..., :h, :], buf[..., h:, : w // 2], buf[..., h:, w // 2 :]
 
 
 def merge_yuv420p(y, u, v):
-    return torch.cat([y, torch.cat([u, v], dim=1)], dim=0)
+    """Y [..., H, W], U, V [..., H/2, W/2] -> packed [..., H*3/2, W]."""
+    return torch.cat([y, torch.cat([u, v], dim=-1)], dim=-2)
 
 
 def split_nv12(buf):
-    """NV12 [H*3/2, W] -> (Y [H,W], U [H/2,W/2], V [H/2,W/2]) views."""
-    h = buf.shape[0] * 2 // 3
-    uv = buf[h:].reshape(h // 2, -1, 2)
-    return buf[:h], uv[..., 0], uv[..., 1]
+    """NV12 [..., H*3/2, W] -> (Y [..., H, W], U, V [..., H/2, W/2])
+    views."""
+    h = buf.shape[-2] * 2 // 3
+    uv = buf[..., h:, :].unflatten(-1, (-1, 2))
+    return buf[..., :h, :], uv[..., 0], uv[..., 1]
 
 
 def merge_nv12(y, u, v):
-    h, w = y.shape
-    return torch.cat([y, torch.stack([u, v], dim=-1).reshape(h // 2, w)], dim=0)
+    """Y [..., H, W], U, V [..., H/2, W/2] -> NV12 [..., H*3/2, W]."""
+    return torch.cat([y, torch.stack([u, v], dim=-1).flatten(-2)], dim=-2)
+
+
+def split_frame(buf, frame_format):
+    """A packed ``frame_format`` ("yuv420p" or "nv12") buffer
+    [..., H*3/2, W] -> its planes (Y [..., H, W], U, V [..., H/2, W/2])."""
+    return (split_nv12 if frame_format == "nv12" else split_yuv420p)(buf)
+
+
+def merge_frame(y, u, v, frame_format):
+    """Planes Y [..., H, W], U, V [..., H/2, W/2] -> the packed
+    ``frame_format`` buffer [..., H*3/2, W]."""
+    return (merge_nv12 if frame_format == "nv12" else merge_yuv420p)(y, u, v)
 
 
 def _up2(c):

@@ -45,15 +45,15 @@ import torch.distributed as dist
 from scipy.ndimage import distance_transform_edt
 
 from ..ops import cuda_pyramid
-from ..ops.color import merge_nv12, merge_yuv420p, planes_to_rgb_planar, rgb_planar_to_planes
+from ..ops.color import _quantize, merge_frame, rgb_planar_to_planes, split_frame
 from ..ops.cuda_remap import remap_apply, remap_apply_frames
 from ..ops.pyramid import down_matrix, require_full_f32, up_matrix
 from ..ops.remap import concat_source, remap_group, remap_plan
-from ..ops.resize import resize_bilinear_host
 from ..stitch.blenders import WEIGHT_EPS, np_pyr_down
 from ..stitch.gain import BETA, GainPlan, finish_gain_plan, solve_pair_means
 from ..stitch.gain_blocks import assemble_and_solve_lattice, build_blocks_gain_plan
-from ..stitch.mapper import _pool_cols_matrix, _pool_pow2, _quantize, _working_stride, size_groups
+from ..stitch.frames import check_frames, prep_rgb, prep_yuv, vignette_maps
+from ..stitch.mapper import _pool_cols_matrix, _pool_pow2, _working_stride, size_groups
 from ..stitch.yuv_mode import half_maps, yuv_rgb_norm
 from ..template.compiler import MapperTemplate, is_empty
 from ..utils.device import resolve_device, tree_to
@@ -896,17 +896,10 @@ def build_sharded_plan(
 
     # ---- vignettes (None where the template has none: the JAX package's
     # ones, whose multiply changes no byte)
-    plan.vignette = [
-        None if inp.vignette is None
-        else np.asarray(resize_bilinear_host(inp.vignette, Hi, Wi)).astype(np.float32)
-        for inp, (Hi, Wi) in zip(mt.inputs + mt.overlay_inputs, sizes)
-    ]
+    vigs = [vignette_maps(inp.vignette, *hw, yuv) for inp, hw in zip(mt.inputs + mt.overlay_inputs, sizes)]
+    plan.vignette = [v for v, _ in vigs]
     if yuv:
-        plan.vignette_half = [
-            None if v is None
-            else v.reshape(v.shape[0] // 2, 2, v.shape[1] // 2, 2).mean(axis=(1, 3)).astype(np.float32)
-            for v in plan.vignette
-        ]
+        plan.vignette_half = [vh for _, vh in vigs]
     if out_size != (W, H):
         plan.resize_v = _vtab(S, H, oh, obh, bh, halo)
         plan.resize_h = _htab(W, ow)
@@ -1208,44 +1201,21 @@ class ShardedMapper:
             return buf[:, None]
         return buf.index_select(1, self._src_idx[i]).view(buf.shape[0], -1, h * 3 // 2, buf.shape[2])
 
-    def _planes(self, blocks):
-        """Packed blocks [..., h*3/2, W] -> (Y [..., h, W], U, V
-        [..., h/2, W/2]) in the plan's frame format."""
-        h, w = blocks.shape[-2] * 2 // 3, blocks.shape[-1]
-        y, c = blocks[..., :h, :], blocks[..., h:, :]
-        if self.plan.frame_format == "nv12":
-            uv = c.unflatten(-1, (w // 2, 2))
-            return y, uv[..., 0], uv[..., 1]
-        return y, c[..., : w // 2], c[..., w // 2 :]
-
-    def _prep_band_yuv(self, frames):
-        """Source slice, plane split, vignette and quantize of B frame
-        sets.  Returns per input its Y blocks [B, k, 1, h, W] and U|V
-        blocks [B, k, 2, h/2, W/2], uint8."""
-        ys, uvs = [], []
-        for i, buf in enumerate(frames):
-            y, u, v = self._planes(self._slice_src(buf, i))
-            uv = torch.stack([u, v], dim=2)
-            if self._vig[i] is not None:
-                y = _quantize(torch.clamp(y.float() * self._vig[i], 0.0, 255.0))
-                uv = _quantize(
-                    torch.clamp((uv.float() - 128.0) * self._vig_half[i][:, None] + 128.0, 0.0, 255.0)
-                )
-            ys.append(y[:, :, None])
-            uvs.append(uv)
-        return ys, uvs
-
-    def _prep_band_rgb(self, frames):
-        """Source slice, planar RGB, vignette and quantize of B frame sets
-        (the rgb Mapper's prep per block).  Returns per input its RGB
-        blocks [B, k, 3, h, W], uint8."""
-        out = []
-        for i, buf in enumerate(frames):
-            rgb = planes_to_rgb_planar(*self._planes(self._slice_src(buf, i)))
-            if self._vig[i] is not None:
-                rgb = torch.clamp(rgb * self._vig[i][:, None], 0.0, 255.0)
-            out.append(_quantize(rgb))
-        return out
+    def _prep(self, frames):
+        """The input stage (``stitch.frames``) of B frame sets over each
+        input's source blocks, with the vignettes' per-band slices.
+        Returns per input its Y blocks [B, k, 1, h, W] and U|V blocks
+        [B, k, 2, h/2, W/2] as two tuples on the yuv420 pipeline, its
+        RGB blocks [B, k, 3, h, W] (a list) on the rgb one, uint8."""
+        fmt = self.plan.frame_format
+        if self.plan.pipeline == "yuv420":
+            return tuple(
+                zip(*(
+                    prep_yuv(self._slice_src(buf, i), fmt, self._vig[i], self._vig_half[i])
+                    for i, buf in enumerate(frames)
+                ))
+            )
+        return [prep_rgb(self._slice_src(buf, i), fmt, self._vig[i]) for i, buf in enumerate(frames)]
 
     def _remap_dtype(self):
         """Multiband takes its compute dtype straight out of the kernel;
@@ -1585,12 +1555,7 @@ class ShardedMapper:
     def _pack(self, y8, u8, v8):
         """Per-band uint8 planes Y [S, obh, oW], U, V [S, obh/2, oW/2] ->
         the packed band buffers [S*obh*3/2, oW] in the frame format."""
-        S, obh, oW = y8.shape
-        if self.plan.frame_format == "nv12":
-            c = torch.stack([u8, v8], dim=-1).reshape(S, obh // 2, oW)
-        else:
-            c = torch.cat([u8, v8], dim=-1)
-        return torch.cat([y8, c], dim=1).reshape(S * obh * 3 // 2, oW)
+        return merge_frame(y8, u8, v8, self.plan.frame_format).flatten(0, 1)
 
     # ----------------------------------------------------------- post-warp
 
@@ -1639,7 +1604,7 @@ class ShardedMapper:
         nb = frames[0].shape[0]
         outs, gains = [], []
         if self.plan.pipeline == "yuv420":
-            ys, uvs = self._prep_band_yuv(frames)
+            ys, uvs = self._prep(frames)
             wy = self._remap(ys, self.plan.remap_groups, nb > 1)
             wuv = self._remap(uvs, self.plan.remap_uv_groups, nb > 1)
             for b in range(nb):
@@ -1650,7 +1615,7 @@ class ShardedMapper:
                 gains.append(g)
         else:
             for b in range(nb):
-                parts = self._prep_band_rgb([f[b : b + 1] for f in frames])
+                parts = self._prep([f[b : b + 1] for f in frames])
                 warped = self._remap(parts, self.plan.remap_groups, False)
                 o, g = self._postwarp_band_rgb([w[0] for w in warped], None if gains_in is None else gains_in[b])
                 outs.append(o)
@@ -1658,6 +1623,9 @@ class ShardedMapper:
         return torch.stack(outs), torch.stack(gains)
 
     def _frames_to_device(self, frames):
+        """The call's frames, per input a [B, Hi*3/2, Wi] stack or one
+        stacked [B, n, Hi*3/2, Wi], checked (``stitch.frames.check_frames``)
+        and on the device, per input."""
         sizes = self.plan.in_sizes
         n = len(sizes)
         if not isinstance(frames, (list, tuple)):
@@ -1668,20 +1636,7 @@ class ShardedMapper:
             if f.dim() != 4 or f.shape[1] != n:
                 raise ValueError(f"want a stacked uint8 [B, {n}, {Hi * 3 // 2}, {Wi}], got {tuple(f.shape)}")
             frames = f.unbind(1)
-        if len(frames) != n:
-            raise ValueError(f"{len(frames)} frame stacks for {n} inputs and overlay inputs")
-        bufs = []
-        for f, (Hi, Wi) in zip(frames, sizes):
-            if not isinstance(f, torch.Tensor):
-                f = torch.from_numpy(np.array(f))
-            f = f.to(self.device)
-            want = (Hi * 3 // 2, Wi)
-            if f.dtype != torch.uint8 or f.dim() != 3 or tuple(f.shape[1:]) != want:
-                raise ValueError(f"want uint8 [B, {want[0]}, {want[1]}], got {f.dtype} {tuple(f.shape)}")
-            bufs.append(f)
-        if len({f.shape[0] for f in bufs}) != 1:
-            raise ValueError("every input needs the same number of frames")
-        return bufs
+        return [f.to(self.device) for f in check_frames(frames, sizes, batched=True)]
 
     def stitch_batch(self, frames, gains=None):
         """frames: per input (then per overlay input) a uint8
@@ -1720,10 +1675,6 @@ class ShardedMapper:
             raise ValueError("assemble_yuv needs out_format='yuv420p'")
         ow, oh = self.plan.out_size
         S, obh, oW = self.plan.S, self.plan.obh, self.plan.oW
-        bands = torch.as_tensor(out_b).reshape(S, obh * 3 // 2, oW)
-        y = bands[:, :obh].reshape(S * obh, oW)[:oh, :ow]
-        c = bands[:, obh:].reshape(S * obh // 2, oW)[: oh // 2]
-        if self.plan.frame_format == "nv12":
-            uv = c.unflatten(-1, (oW // 2, 2))[:, : ow // 2]
-            return merge_nv12(y, uv[..., 0], uv[..., 1])
-        return merge_yuv420p(y, c[:, : ow // 2], c[:, oW // 2 : oW // 2 + ow // 2])
+        y, u, v = split_frame(torch.as_tensor(out_b).reshape(S, obh * 3 // 2, oW), self.plan.frame_format)
+        u, v = (c.flatten(0, 1)[: oh // 2, : ow // 2] for c in (u, v))
+        return merge_frame(y.flatten(0, 1)[:oh, :ow], u, v, self.plan.frame_format)

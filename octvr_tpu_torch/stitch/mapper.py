@@ -42,18 +42,11 @@ import torch
 
 
 from ..ops import launch_counts
-from ..ops.color import (
-    merge_nv12,
-    merge_yuv420p,
-    planes_to_rgb_planar,
-    rgb_planar_to_planes,
-    split_nv12,
-    split_yuv420p,
-)
+from ..ops.color import _quantize, merge_frame, rgb_planar_to_planes
 from ..ops.cuda_remap import remap_apply, remap_apply_frames
 from ..ops.pyramid import require_full_f32
 from ..ops.remap import remap_group, remap_plan
-from ..ops.resize import resize_apply, resize_bilinear_host, resize_plan
+from ..ops.resize import resize_apply, resize_plan
 from ..runtime.timer import RECORDER
 from ..template.compiler import MapperTemplate, is_empty
 from ..utils.device import resolve_device, tree_to
@@ -63,6 +56,7 @@ from .blenders import (
     feather_blend,
     multiband_blend,
 )
+from .frames import check_frames, prep_rgb, prep_yuv, vignette_maps
 from .gain import build_gain_plan, solve_gains
 from .gain_blocks import (
     build_blocks_gain_plan,
@@ -74,7 +68,7 @@ from .yuv_mode import half_mask, half_maps, half_roi, yuv_rgb_norm
 
 WORKING_MEGAPIX = 0.1  # mapper.cpp:43
 
-__all__ = ["FastMapper", "Mapper", "StitchPlan", "build_plan", "rgb_prep"]
+__all__ = ["FastMapper", "Mapper", "StitchPlan", "build_plan"]
 
 
 def _pool_pow2(x, s, col_mat=None):
@@ -205,11 +199,7 @@ def _input_plan(inp, in_h, in_w, stride, yuv, is_overlay):
         # a block counts only when fully covered by the mask
         work_mask = (pooled > 0.999).astype(np.uint8) * 255
 
-    vig = None
-    if inp.vignette is not None:
-        vig = np.asarray(resize_bilinear_host(inp.vignette, in_h, in_w)).astype(
-            np.float32
-        )
+    vig, vig_half = vignette_maps(inp.vignette, in_h, in_w, yuv)
     ip = _InputPlan(
         roi=inp.roi,
         work_sub=work_sub,
@@ -220,6 +210,7 @@ def _input_plan(inp, in_h, in_w, stride, yuv, is_overlay):
             if work_sub is not None and stride > 1
             else None
         ),
+        vig_half=vig_half,
     )
     if yuv:
         ip.roi_uv = half_roi(inp.roi)
@@ -234,10 +225,6 @@ def _input_plan(inp, in_h, in_w, stride, yuv, is_overlay):
             else:
                 ip.uv_rows = ((ry + oy + np.arange(wh)) // 2 - cy0).astype(np.int32)
                 ip.uv_cols = ((rx + ox + np.arange(ww)) // 2 - cx0).astype(np.int32)
-        if vig is not None:
-            ip.vig_half = (
-                vig.reshape(in_h // 2, 2, in_w // 2, 2).mean(axis=(1, 3)).astype(np.float32)
-            )
         ip.mask_half = (half_mask(inp.mask, inp.roi) > 0).astype(np.uint8) * 255
     return ip, work_mask, wroi
 
@@ -383,20 +370,6 @@ def build_plan(
         resize=rs,
         resize_uv=rs_uv,
     )
-
-
-def _quantize(x):
-    return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
-
-
-def rgb_prep(y, u, v, vignette):
-    """One input's rgb prep: planes -> planar RGB f32 -> vignette multiply
-    and clip -> round and clip to uint8 [3, H, W] (the JAX pack_rgb
-    quantization without its int32 packing)."""
-    rgb = planes_to_rgb_planar(y, u, v)
-    if vignette is not None:
-        rgb = torch.clamp(rgb * vignette[None], 0.0, 255.0)
-    return _quantize(rgb)
 
 
 def _paste(canvas, img, roi, mask):
@@ -561,12 +534,6 @@ class Mapper:
             return torch.float32
         return getattr(torch, plan.blender.compute_dtype)
 
-    def _split(self, buf):
-        return (split_nv12 if self.frame_format == "nv12" else split_yuv420p)(buf)
-
-    def _merge(self, y, u, v):
-        return (merge_nv12 if self.frame_format == "nv12" else merge_yuv420p)(y, u, v)
-
     def _work_norms_rgb(self, warped):
         norms = []
         for w, ip in zip(warped, self.plan.inputs):
@@ -604,9 +571,21 @@ class Mapper:
         rig = torch.ones(self.cameras, dtype=gains.dtype, device=gains.device)
         return rig.index_copy_(0, self._live, gains)
 
+    def _prep(self, bufs):
+        """The input stage of the plan's frames (``stitch.frames``): per
+        input (then overlay) Y [1, H, W] and U|V [2, H/2, W/2] as two
+        tuples on the yuv420 pipeline, a list of planar RGB [3, H, W] on
+        the rgb one, uint8."""
+        ips = self.plan.inputs + self.plan.overlays
+        if self.plan.pipeline == "yuv420":
+            return tuple(
+                zip(*(prep_yuv(b, self.frame_format, ip.vignette, ip.vig_half) for b, ip in zip(bufs, ips)))
+            )
+        return [prep_rgb(b, self.frame_format, ip.vignette) for b, ip in zip(bufs, ips)]
+
     def _forward(self, prepped, gains):
-        """Everything after the prep (``_prep_yuv``'s or ``_prep_rgb``'s
-        planes), gains in and out one per camera of the rig."""
+        """Everything after the prep (``_prep``'s planes), gains in and
+        out one per camera of the rig."""
         gains = self._plan_gains(gains)
         if self.plan.pipeline == "yuv420":
             out, gains = self._postwarp_yuv(*self._remap_yuv(*prepped), gains)
@@ -636,13 +615,6 @@ class Mapper:
 
     # ---------------------------------------------------------- rgb path
 
-    def _prep_rgb(self, frames):
-        """rgb_prep per input (and overlay): uint8 [3, H, W] each."""
-        return [
-            rgb_prep(*self._split(buf), ip.vignette)
-            for buf, ip in zip(frames, self.plan.inputs + self.plan.overlays)
-        ]
-
     def _remap(self, planes, groups, dtype, frames=False):
         """One kernel launch per size group.  planes: per input (then
         overlay) a uint8 [C, H, W] stack, or with ``frames`` a
@@ -662,8 +634,8 @@ class Mapper:
         return warped
 
     def _forward_rgb(self, planes, ext_gains):
-        """Everything after the prep (``_prep_rgb``'s planes): remap,
-        gains, blend, pack."""
+        """Everything after the prep (``_prep``'s planes): remap, gains,
+        blend, pack."""
         plan = self.plan
         n = self.num_inputs
         W, H = plan.canvas_size
@@ -699,29 +671,12 @@ class Mapper:
             canvas = torch.clamp(canvas, 0.0, 255.0)
             if plan.resize is not None:
                 canvas = resize_apply(canvas, plan.resize)
-            out = self._merge(*rgb_planar_to_planes(canvas))
+            out = merge_frame(*rgb_planar_to_planes(canvas), self.frame_format)
             if gains is None:
                 gains = torch.ones(n, dtype=torch.float32, device=self.device)
         return out, gains
 
     # ------------------------------------------------------- yuv420 path
-
-    def _prep_yuv(self, frames):
-        """Split, vignette, round and clip to uint8: per input (and
-        overlay) a Y plane [1, H, W] and a U|V stack [2, H/2, W/2]."""
-        ys, uvs = [], []
-        for buf, ip in zip(frames, self.plan.inputs + self.plan.overlays):
-            y, u, v = self._split(buf)
-            uv = torch.stack([u, v])
-            if ip.vignette is None:
-                ys.append(y[None])
-                uvs.append(uv)
-                continue
-            ys.append(_quantize(torch.clamp(y.float() * ip.vignette, 0.0, 255.0))[None])
-            uvs.append(
-                _quantize(torch.clamp((uv.float() - 128.0) * ip.vig_half + 128.0, 0.0, 255.0))
-            )
-        return ys, uvs
 
     def _remap_yuv(self, ys, uvs, frames=False):
         """The Y and U|V remaps, then chroma centring: chroma rides
@@ -787,7 +742,7 @@ class Mapper:
                 # chroma at half resolution
                 yf = resize_apply(yf, plan.resize)
                 uvf = resize_apply(uvf, plan.resize_uv)
-            out = self._merge(_quantize(yf), _quantize(uvf[0]), _quantize(uvf[1]))
+            out = merge_frame(_quantize(yf), _quantize(uvf[0]), _quantize(uvf[1]), self.frame_format)
             if gains is None:
                 gains = torch.ones(n, dtype=torch.float32, device=self.device)
         return out, gains
@@ -799,7 +754,7 @@ class Mapper:
         preps = []
         for b in range(B):
             with RECORDER.span("mapper.prep"):
-                preps.append(self._prep_yuv([f[b] for f in frames]))
+                preps.append(self._prep([f[b] for f in frames]))
         # per input, its B frames: Y [B, 1, H, W] and U|V [B, 2, H/2, W/2]
         ys, uvs = (
             [torch.stack(per_input) for per_input in zip(*(p[k] for p in preps))]
@@ -820,29 +775,11 @@ class Mapper:
     # ------------------------------------------------------------- public
 
     def _check_frames(self, frames, batched):
-        """The frames as uint8 tensors of the shapes ``in_sizes`` gives,
-        where they are (host or device), in the plan's order: an empty
-        camera's frame is checked and left out."""
-        if len(frames) != len(self.in_sizes):
-            raise ValueError(f"{len(frames)} frames for {len(self.in_sizes)} inputs")
-        bufs = []
-        for f, (h, w) in zip(frames, self.in_sizes):
-            if not isinstance(f, torch.Tensor):
-                f = torch.from_numpy(np.array(f))  # a writable copy
-            want = (h * 3 // 2, w)
-            shape = tuple(f.shape[1:]) if batched else tuple(f.shape)
-            if f.dtype != torch.uint8 or shape != want or f.dim() != 2 + batched:
-                lead = "B, " if batched else ""
-                raise ValueError(
-                    f"want uint8 [{lead}{want[0]}, {want[1]}], got {f.dtype} {tuple(f.shape)}"
-                )
-            bufs.append(f)
-        if batched and len({f.shape[0] for f in bufs}) != 1:
-            raise ValueError("every input needs the same number of frames")
+        """The frames checked (``stitch.frames.check_frames`` against
+        ``in_sizes``), where they are (host or device), in the plan's
+        order: an empty camera's frame is checked and left out."""
+        bufs = check_frames(frames, self.in_sizes, batched)
         return [bufs[i] for i in self._frame_idx]
-
-    def _frames_to_device(self, frames, batched):
-        return [f.to(self.device) for f in self._check_frames(frames, batched)]
 
     def stitch(self, frames, gains=None):
         """frames: per input (then per overlay input) a packed YUV420P or
@@ -909,7 +846,7 @@ class Mapper:
             bufs = [f.to(self.device) for f in bufs]
             if gains is not None:
                 gains = torch.as_tensor(gains, dtype=torch.float32, device=self.device)
-            prepped = self._prep_yuv(bufs) if self.plan.pipeline == "yuv420" else self._prep_rgb(bufs)
+            prepped = self._prep(bufs)
         return self._forward(prepped, gains)
 
     def stitch_batch(self, frames, gains=None):
@@ -924,7 +861,7 @@ class Mapper:
         per frame (one ``mapper.remap`` for all B frames on the yuv420
         pipeline), under the caller's open span."""
         with RECORDER.span("mapper.prep"):
-            bufs = self._frames_to_device(frames, batched=True)
+            bufs = [f.to(self.device) for f in self._check_frames(frames, batched=True)]
             if gains is not None:
                 gains = torch.as_tensor(gains, dtype=torch.float32, device=self.device)
         if self.plan.pipeline == "yuv420":
@@ -932,7 +869,7 @@ class Mapper:
         outs, gs = [], []
         for b in range(bufs[0].shape[0]):
             with RECORDER.span("mapper.prep"):
-                planes = self._prep_rgb([f[b] for f in bufs])
+                planes = self._prep([f[b] for f in bufs])
             o, g = self._forward(planes, None if gains is None else gains[b])
             outs.append(o)
             gs.append(g)

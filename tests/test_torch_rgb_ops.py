@@ -32,7 +32,7 @@ from octvr_tpu_torch.ops.remap import (
     remap_plan,
 )
 from octvr_tpu_torch.ops.resize import resize_apply, resize_plan
-from octvr_tpu_torch.stitch.mapper import rgb_prep
+from octvr_tpu_torch.stitch.frames import rgb_prep
 from octvr_tpu_torch.utils.device import tree_to
 from remap_fixtures import IN_H, IN_W, edge_maps
 from test_pallas_remap import _arc_maps
