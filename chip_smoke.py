@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 Phases, each failing the run on any error:
   1. environment: torch, CUDA, triton, the card and its power limit;
   2. build of the two kernel libraries (utils/build.py: ``product``,
-     csrc/remap.cu and csrc/pyramid.cu; ``tools``, csrc/mxu_taps.cu;
+     csrc/remap.cu, csrc/pyramid.cu and csrc/prep.cu; ``tools``,
+     csrc/mxu_taps.cu;
      nvcc, sm_90a), one nvcc
      each, started together, with each one's time and ptxas register
      and spill lines;
@@ -76,6 +77,11 @@ Phases, each failing the run on any error:
         banded products with the eager ops on the card (the library
         yardstick); in bf16 and in f32 every launch against those
         products and ops on its own inputs;
+     e. the prep kernel (csrc/prep.cu) on phase 5's six frames with the
+        plan's vignettes: each frame's Y and U|V byte-equal to the eager
+        ops, then device ms of the six launches in a CUDA graph beside
+        their byte bound (each byte read or written once, at 3.35 TB/s)
+        and the eager ops' device ms (15 launches a frame);
   6. the band-sharded path: the same 4K rig through make_mesh(1, 4) with
      source windows (kernel 6), blend 128, gains, bf16, on phase 5's
      frame sets, at B=1 and at B=4 through the frames axis; plan-build
@@ -1385,7 +1391,7 @@ def _pyramid_counts(plan, dtype="bf16"):
 
 
 def phase_main_path(mt, t_template, frame_sets):
-    from octvr_tpu_torch.ops import cuda_pyramid, cuda_remap
+    from octvr_tpu_torch.ops import cuda_prep, cuda_pyramid, cuda_remap
     from octvr_tpu_torch.stitch import Mapper
 
     log("== 5. main path: 6 x 1920^2 fisheyes -> 3840x1920, yuv420 + bf16 + gains")
@@ -1402,6 +1408,7 @@ def phase_main_path(mt, t_template, frame_sets):
     # the main path's launch counts: reset just before, read just after
     cuda_remap.reset_counts()
     cuda_pyramid.reset_counts()
+    cuda_prep.reset_counts()
     t0 = time.time()
     out, gains = mapper.stitch(frame_sets[0])
     checksum = int(out[::101, ::103].to(torch.int64).sum().item())
@@ -1417,6 +1424,7 @@ def phase_main_path(mt, t_template, frame_sets):
     launches = cuda_remap.LAUNCHES
     counts = dict(cuda_remap.COUNTS)
     pyr_counts = dict(cuda_pyramid.COUNTS)
+    prep_counts = dict(cuda_prep.COUNTS)
     peak = torch.cuda.max_memory_allocated()
     log(f"  first call {t_first:.3f} s")
     log(f"  output checksum (frame 0): {checksum}")
@@ -1432,6 +1440,9 @@ def phase_main_path(mt, t_template, frame_sets):
         f"(a set: {per_set})")
     if pyr_counts != {k: (ITERS + 1) * v for k, v in per_set.items()}:
         raise AssertionError(f"expected {ITERS + 1} sets of the pyramid launches {per_set}")
+    log(f"  prep kernel launches: {cuda_prep.LAUNCHES} over {ITERS + 1} frames: {prep_counts}")
+    if prep_counts != {"yuv420p": 6 * (ITERS + 1)}:
+        raise AssertionError(f"expected one prep launch per camera and set, {6 * (ITERS + 1)}")
     if out.dtype != torch.uint8 or tuple(out.shape) != (CANVAS_H * 3 // 2, CANVAS_W):
         raise AssertionError(f"bad output {out.dtype} {tuple(out.shape)}")
     if not torch.isfinite(gains).all():
@@ -1477,6 +1488,7 @@ def phase_main_path(mt, t_template, frame_sets):
         "nc1": {"launches": counts["nc1_bf16"], "err": err},
         "nc2": {"launches": counts["nc2_bf16"], "err": err},
         "pyramid_launches": sum(pyr_counts.values()),
+        "prep_launches": sum(prep_counts.values()),
     }
 
 
@@ -1783,6 +1795,54 @@ def phase_pyramid_device_time(mapper):
     log(f"  a set's two blends: kernels {total['ms']:.4f} device ms, bound {total['bound_ms']:.4f} ms, share "
         f"{total['bound_ms'] / total['ms']:.3f}; banded products and eager ops {total['library_ms']:.4f} ms")
     return total
+
+
+def _prep_bytes(h, w):
+    """Bytes the prep of one packed frame [h*3/2, w] with its vignettes
+    must move, each read or written once: the frame, the f32 vignette
+    [h, w] and chroma vignette [h/2, w/2], the uint8 Y and U|V."""
+    return h * 3 // 2 * w + 4 * h * w + 4 * (h // 2) * (w // 2) + h * w + h * w // 2
+
+
+def phase_prep_device_time(mapper, frame_sets):
+    """5e: the prep kernel on phase 5's six frames with the 4K plan's
+    vignettes: every frame's Y and U|V byte-equal to the eager ops on
+    the card; the six launches' device ms in a CUDA graph (``device_ms``,
+    median of replays) beside their byte bound (``_prep_bytes`` at 3.35
+    TB/s) and the eager ops' device ms (the plain version, 15 launches a
+    frame, the parent's path); the eager call's ms."""
+    from octvr_tpu_torch.ops import cuda_prep
+
+    log("== 5e. prep kernel at the 4K main path's shapes: six 1920^2 frames, device ms, byte bound, eager ops")
+    fmt = mapper.frame_format
+    ips = mapper.plan.inputs
+    frames = frame_sets[0]
+    for f, ip in zip(frames, ips):
+        got = cuda_prep.prep_yuv(f, fmt, ip.vignette, ip.vig_half)
+        want = cuda_prep.prep_yuv_reference(f, fmt, ip.vignette, ip.vig_half)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("prep kernel differs from the eager ops at the 4K main path's shapes")
+
+    def kernel():
+        for f, ip in zip(frames, ips):
+            cuda_prep.prep_yuv(f, fmt, ip.vignette, ip.vig_half)
+
+    def plain():
+        for f, ip in zip(frames, ips):
+            cuda_prep.prep_yuv_reference(f, fmt, ip.vignette, ip.vig_half)
+
+    ms = device_ms(kernel)[0]
+    plain_ms = device_ms(plain)[0]
+    call_ms = steady_ms(kernel)[0]
+    nbytes = sum(_prep_bytes(f.shape[0] * 2 // 3, f.shape[1]) for f in frames)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  six frames: kernel {ms:.4f} device ms ({ms / len(frames) * 1e3:.2f} us a frame), call {call_ms:.4f} ms; "
+        f"{nbytes / 1e6:.1f} MB, bound {bound_ms:.4f} ms, share {bound_ms / ms:.3f}; eager ops {plain_ms:.4f} "
+        f"device ms ({plain_ms / ms:.1f}x); Y and U|V byte-equal to the eager ops on all six")
+    if not bound_ms < ms:
+        raise AssertionError("the prep kernel beats its byte bound: bytes or time miscounted")
+    return {"err": 0.0, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None}
 
 
 def build_sharded_4k(mt, pipeline="yuv420"):
@@ -3549,6 +3609,7 @@ def main(argv):
     mapper = main_path.pop("mapper")
     batch = phase_stitch_batch(mapper, frame_sets, main_path["ms_frame"])
     pyramid = phase_pyramid_device_time(mapper)
+    prep = phase_prep_device_time(mapper, frame_sets)
     sharded = phase_sharded(host, t_host, frame_sets, main_path)
     sharded_sm = sharded.pop("sm")
     sharded_rgb = phase_sharded_rgb(host_rgb, t_host_rgb, frame_sets, rgb)
@@ -3598,6 +3659,9 @@ def main(argv):
     log(f"4K pyramid kernels (5d), a set's two blends: device {pyramid['ms']:.4f} ms (share of bound "
         f"{pyramid['bound_ms'] / pyramid['ms']:.3f}); call {pyramid['call_ms']:.4f}; banded products "
         f"{pyramid['library_ms']:.4f}; {main_path['pyramid_launches'] // (ITERS + 1)} launches a set")
+    log(f"4K prep kernel (5e), six frames: device {prep['ms']:.4f} ms (share of bound "
+        f"{prep['bound_ms'] / prep['ms']:.3f}); call {prep['call_ms']:.4f}; eager ops {prep['plain_ms']:.4f}; "
+        f"{main_path['prep_launches'] // (ITERS + 1)} launches a set")
     log("4K remap launches: device ms (share of bound); call ms; grid_sample device ms")
     for key, t in times.items():
         log(f"  {key:22s} {t['ms']:.5f} ({t['bound_ms'] / t['ms']:.3f}); call {t['call_ms']:.5f}; "
@@ -3626,6 +3690,9 @@ def main(argv):
         ("pyramid steps of the multiband blends (4K yuv420: Y 6 bands + U|V 5 bands, bf16), kernel 9",
          "octvr_tpu_torch/csrc/pyramid.cu", "octvr_tpu/ops/pyramid.py pyr_down_mm/pyr_up_mm (banded XLA products)",
          {**pyramid, "launches": main_path["pyramid_launches"]}, 0.0),
+        ("prep, the yuv420 input stage with the vignette (4K: six 1920^2 frames), kernel 10",
+         "octvr_tpu_torch/csrc/prep.cu", "none: octvr_tpu/stitch/mapper.py _prep_pack_yuv (plain XLA)",
+         {**prep, "launches": main_path["prep_launches"]}, 0.0),
         ("MXU-taps probe A, gather from the step's window staged in shared memory, plan in 16 B vectors "
          "(fan), kernel 8", taps_src, f"{probe}:100", taps["fan"], 0.0),
         ("MXU-taps probe B, folded f32 weights as three bf16 wgmma products, A from registers, kernel 8",

@@ -79,11 +79,12 @@ def _entry(step, dtype):
     return fn
 
 
-def _layout(t):
+def plane_layout(t):
     """(pointer, plane stride, row stride) of ``t`` [..., h, w] as a stack
     of planes, and their count; None where the last axis is not dense or
     the leading axes do not form one stride.  A stack of one plane has
-    plane stride 0, so it broadcasts over any stack."""
+    plane stride 0, so it broadcasts over any stack.  The prep kernel's
+    wrapper (``cuda_prep``) lays out its operands with it too."""
     h, w = t.shape[-2:]
     if t.stride(-1) != 1 and w > 1:
         return None
@@ -107,7 +108,7 @@ def _operand(t, name, x, shape, planes, broadcast=False):
         raise ValueError(f"{name} is {t.dtype} on {t.device}, the input {x.dtype} on {x.device}")
     if tuple(t.shape[-2:]) != shape:
         raise ValueError(f"{name} is {tuple(t.shape)}, expected [..., {shape[0]}, {shape[1]}]")
-    lay = _layout(t)
+    lay = plane_layout(t)
     if lay is None:
         raise ValueError(f"{name}: the last axis must be dense and the leading axes one stride, "
                          f"strides {tuple(t.stride())}")
@@ -125,10 +126,10 @@ def _launch(variant, x, out, a=None, b=None):
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in _TAGS:
         raise ValueError(f"pyramid kernels take float32 or bfloat16, got {x.dtype}")
-    lay = _layout(x)
+    lay = plane_layout(x)
     if lay is None:
         x = x.contiguous()
-        lay = _layout(x)
+        lay = plane_layout(x)
     xs, planes = lay
     n_h, n_w = x.shape[-2:]
     shape = (n_h // 2, n_w // 2) if variant == "down" else (2 * n_h, 2 * n_w)

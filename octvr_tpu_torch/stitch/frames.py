@@ -9,11 +9,14 @@ Mapper preps one frame per input, the ShardedMapper the B x k source
 blocks of an input (k per-band row slices, ``_slice_src``), each block
 with its own slice of the vignette.  The vignettes broadcast from the
 right over the planes: [H, W] for every block, or [k, H, W] per block.
+The yuv420 prep with a vignette is one kernel launch on the card
+(ops.cuda_prep).
 """
 
 import numpy as np
 import torch
 
+from ..ops import cuda_prep
 from ..ops.color import _quantize, planes_to_rgb_planar, split_frame
 from ..ops.resize import resize_bilinear_host
 
@@ -59,13 +62,12 @@ def prep_yuv(buf, frame_format, vig, vig_half):
     """The yuv420 prep of packed frames [..., H*3/2, W]: split, vignette
     multiply (chroma about 128), clip, round and clip to uint8.  Returns
     Y [..., 1, H, W] and U|V [..., 2, H/2, W/2]; without a vignette
-    (``vig`` None) Y is a view of ``buf``."""
-    y, u, v = split_frame(buf, frame_format)
-    uv = torch.stack([u, v], dim=-3)
-    if vig is not None:
-        y = _quantize(torch.clamp(y.float() * vig, 0.0, 255.0))
-        uv = _quantize(torch.clamp((uv.float() - 128.0) * vig_half.unsqueeze(-3) + 128.0, 0.0, 255.0))
-    return y.unsqueeze(-3), uv
+    (``vig`` None) Y is a view of ``buf``.  With one it is
+    ``cuda_prep.prep_yuv``: a kernel launch on the card, the eager ops
+    on the CPU."""
+    if vig is None:
+        return cuda_prep.prep_yuv_reference(buf, frame_format, None, None)
+    return cuda_prep.prep_yuv(buf, frame_format, vig, vig_half)
 
 
 def rgb_prep(y, u, v, vignette):

@@ -4,8 +4,9 @@ The sources fall in two groups, each built into a shared library of its
 own with a plain C interface and loaded with ``ctypes`` by name
 (``load_library(group)``):
 
-- ``product``: ``remap.cu``, the remap kernels of every stitch path, and
-  ``pyramid.cu``, the multiband blend's pyramid steps;
+- ``product``: ``remap.cu``, the remap kernels of every stitch path,
+  ``pyramid.cu``, the multiband blend's pyramid steps, and ``prep.cu``,
+  the yuv420 input stage;
 - ``tools``: ``mxu_taps.cu``, the MXU-taps probe's kernels (an
   instrument, off every product path).
 
@@ -30,7 +31,7 @@ __all__ = ["GROUPS", "NVCC_FLAGS", "build_dir", "library_path", "load_library"]
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 
-GROUPS = {"product": ("remap.cu", "pyramid.cu"), "tools": ("mxu_taps.cu",)}
+GROUPS = {"product": ("remap.cu", "pyramid.cu", "prep.cu"), "tools": ("mxu_taps.cu",)}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

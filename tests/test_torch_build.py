@@ -1,6 +1,6 @@
 """The build of the port's CUDA kernels (octvr_tpu_torch.utils.build):
-one shared library per source group, ``product`` (the remap and the
-pyramid steps) and ``tools`` (the MXU-taps probe), each cached by the
+one shared library per source group, ``product`` (the remap, the
+pyramid steps and the prep) and ``tools`` (the MXU-taps probe), each cached by the
 hash of its own sources and the flags, so a fault in a tool's source
 never reaches the product.  No nvcc is needed: these tests hash and
 check, they build nothing."""
@@ -21,7 +21,8 @@ PKG = ROOT / "octvr_tpu_torch"
 def test_every_source_in_exactly_one_group():
     grouped = [name for names in build.GROUPS.values() for name in names]
     assert sorted(grouped) == sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
-    assert build.GROUPS["product"] == ("remap.cu", "pyramid.cu") and build.GROUPS["tools"] == ("mxu_taps.cu",)
+    assert build.GROUPS["product"] == ("remap.cu", "pyramid.cu", "prep.cu")
+    assert build.GROUPS["tools"] == ("mxu_taps.cu",)
 
 
 def test_each_library_hashes_only_its_own_group(tmp_path, monkeypatch):
@@ -62,7 +63,8 @@ def test_load_library_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "module,group", [("cuda_remap", "product"), ("cuda_pyramid", "product"), ("mxu_taps", "tools")]
+    "module,group",
+    [("cuda_remap", "product"), ("cuda_pyramid", "product"), ("cuda_prep", "product"), ("mxu_taps", "tools")],
 )
 def test_wrappers_load_their_own_group(module, group):
     """ops/cuda_remap.py loads only ``product``; ops/mxu_taps.py only

@@ -2,17 +2,21 @@
 (``octvr_tpu_torch.stitch.frames`` and the packed layout of
 ``octvr_tpu_torch.ops.color``): the split and merge over leading dims,
 the prep over a [B, k, H*3/2, W] stack of source blocks against the same
-call per frame and block, and the frame checks of both stitchers."""
+call per frame and block, the frame checks of both stitchers, and the
+prep kernel's wrapper (``ops.cuda_prep``) on the CPU: its plain version,
+its refusals, and the rounding-edge frames that the on-card tests hold
+the kernel to."""
 
 import numpy as np
 import pytest
 import torch
 
-from octvr_tpu_torch.ops import color
+from octvr_tpu_torch.ops import color, cuda_prep
 from octvr_tpu_torch.parallel import ShardedMapper, make_mesh
 from octvr_tpu_torch.stitch import Mapper
 from octvr_tpu_torch.stitch.frames import prep_rgb, prep_yuv
 from octvr_tpu_torch.template import compile_rig
+from prep_fixtures import prep_numpy, rounding_edges
 from rigs import two_fisheye_rig
 
 B, K, H, W = 2, 3, 16, 24
@@ -152,3 +156,96 @@ def test_frame_checks_refuse(stitchers, entry, fault):
     with pytest.raises(ValueError, match=wording):
         calls[entry](bad)
     calls[entry]([f[None].repeat(2, axis=0) if batched else f for f in frames])
+
+
+@pytest.mark.parametrize("stack", ["one_frame", "blocks"])
+@pytest.mark.parametrize("vignette", ["off", "shared", "per_block"])
+@pytest.mark.parametrize("fmt", ["yuv420p", "nv12"])
+def test_cpu_prep_is_the_plain_version(monkeypatch, fmt, vignette, stack):
+    """On the CPU ``stitch.frames.prep_yuv`` is ``prep_yuv_reference``,
+    and its bytes are the eager ops' of the parent (``prep_numpy``, the
+    same f32 arithmetic in numpy), over one frame [H*3/2, W] and over a
+    [B, K] stack; no kernel launch is counted."""
+    from octvr_tpu_torch.stitch import frames
+
+    bufs = _bufs(4)
+    vig, vig_half = _vignettes(vignette)
+    if stack == "one_frame":
+        bufs = bufs[1, 2]
+        vig, vig_half = _block(vig, 2), _block(vig_half, 2)
+    calls = []
+    real = cuda_prep.prep_yuv_reference
+    monkeypatch.setattr(cuda_prep, "prep_yuv_reference", lambda *a: calls.append(a) or real(*a))
+    launches = cuda_prep.LAUNCHES
+    y, uv = frames.prep_yuv(bufs, fmt, vig, vig_half)
+    assert len(calls) == 1 and calls[0][0] is bufs and cuda_prep.LAUNCHES == launches
+    ry, ruv = real(bufs, fmt, vig, vig_half)
+    assert torch.equal(y, ry) and torch.equal(uv, ruv)
+    lead = tuple(bufs.shape[:-2])
+    assert y.shape == (*lead, 1, H, W) and uv.shape == (*lead, 2, H // 2, W // 2)
+    if vig is None:
+        assert y.untyped_storage().data_ptr() == bufs.untyped_storage().data_ptr()
+        return
+    want_y, want_uv = prep_numpy(bufs, fmt, vig, vig_half)
+    np.testing.assert_array_equal(y[..., 0, :, :].numpy(), want_y)
+    np.testing.assert_array_equal(uv.numpy(), want_uv)
+
+
+def _refused(fault):
+    """(frames, format, vig, vig_half) with one fault, and the wording
+    of its refusal."""
+    bufs = _bufs(5)
+    vig, vig_half = _vignettes("per_block")
+    if fault == "frame_dtype":
+        return (bufs.float(), "yuv420p", vig, vig_half), "frames: dtype torch.float32"
+    if fault == "vig_dtype":
+        return (bufs, "yuv420p", vig.double(), vig_half), "vig: dtype torch.float64"
+    if fault == "frame_shape":
+        return (bufs[..., :-1, :], "yuv420p", vig, vig_half), "frames: shape"
+    if fault == "vig_shape":
+        return (bufs, "yuv420p", vig[..., :-2], vig_half), "vig: shape"
+    if fault == "vig_half_shape":
+        return (bufs, "yuv420p", vig, vig_half[:2]), "vig_half: shape"
+    if fault == "vig_lead":
+        return (bufs, "yuv420p", vig[None].expand(3, -1, -1, -1), vig_half), "vig: shape"
+    if fault == "vig_device":
+        return (bufs, "yuv420p", vig.to("meta"), vig_half), "vig: device meta"
+    if fault == "vig_half_device":
+        return (bufs, "nv12", vig, vig_half.to("meta")), "vig_half: device meta"
+    return (bufs, "uyvy", vig, vig_half), "unknown frame format"
+
+
+@pytest.mark.parametrize(
+    "fault",
+    ["frame_dtype", "vig_dtype", "frame_shape", "vig_shape", "vig_half_shape", "vig_lead", "vig_device",
+     "vig_half_device", "format"],
+)
+def test_prep_wrapper_refuses(fault):
+    """``cuda_prep.prep_yuv`` refuses a wrong dtype, a wrong vignette
+    shape (trailing or leading dims) and a vignette on another device
+    than the frames, one wording each, on any device; the same call
+    without the fault runs."""
+    args, wording = _refused(fault)
+    with pytest.raises(ValueError, match=wording):
+        cuda_prep.prep_yuv(*args)
+    bufs = _bufs(5)
+    cuda_prep.prep_yuv(bufs, "yuv420p", *_vignettes("per_block"))
+
+
+@pytest.mark.parametrize("fmt", ["yuv420p", "nv12"])
+def test_rounding_edges_catch_a_contracted_kernel(fmt):
+    """On the rounding-edge frame the CPU prep stores the two-rounding
+    bytes, and the chroma expression fused into one multiply-add (f64,
+    then one rounding to f32) stores another byte at some sites, as
+    rounding Y's halves away from zero does: the fixture tells a kernel
+    that does either from the eager ops."""
+    buf, vig, vig_half = rounding_edges(fmt)
+    y, uv = cuda_prep.prep_yuv(buf, fmt, vig, vig_half)
+    want_y, want_uv = prep_numpy(buf, fmt, vig, vig_half)
+    np.testing.assert_array_equal(y[0].numpy(), want_y)
+    np.testing.assert_array_equal(uv.numpy(), want_uv)
+    _, fused_uv = prep_numpy(buf, fmt, vig, vig_half, fused=True)
+    assert (fused_uv != want_uv).sum() > 0
+    yf = color.split_frame(buf, fmt)[0].numpy().astype(np.float32) * vig.numpy()
+    away = np.clip(np.floor(np.clip(yf, 0.0, 255.0) + 0.5), 0, 255).astype(np.uint8)
+    assert (away != want_y).sum() > 0

@@ -5,8 +5,11 @@ sources; a CUDA-graph replay), the Mapper's graph against its eager
 stitch (every option group, fresh outputs, two streams, the pipeline,
 TF32 set after the capture, a polar cap with an empty input), and the
 three kernels of the MXU-taps probe (kernel 8) against their plain
-torch versions, and the port's Mapper and ShardedMapper (every option
-group) on the card against the port on the CPU, and the band group
+torch versions, the prep kernel against the eager prep byte for byte
+(the bench rig's frames, odd geometries, block stacks, strided views,
+the rounding edges, both benchmark configurations' stitch), and the
+port's Mapper and ShardedMapper (every option group) on the card
+against the port on the CPU, and the band group
 across two gloo ranks that share the card.  They carry the
 ``cuda`` marker and skip without a card.
 This file imports no JAX, so it also runs where JAX is absent:
@@ -20,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from octvr_tpu_torch.ops import cuda_pyramid, cuda_remap, mxu_taps
+from octvr_tpu_torch.ops import color, cuda_prep, cuda_pyramid, cuda_remap, mxu_taps
 from octvr_tpu_torch.ops.pyramid import down_matrix, pyr_down_mm, pyr_up_mm, up_matrix
 from octvr_tpu_torch.ops.remap import (
     concat_source,
@@ -34,6 +37,7 @@ from octvr_tpu_torch.stitch import FastMapper, Mapper, blenders
 from octvr_tpu_torch.template import compile_rig
 from octvr_tpu_torch.tools.mxu_taps_probe import make_probe_inputs
 from blend_fixtures import CANVAS, blend_scene
+from prep_fixtures import bench_vignettes, prep_numpy, rounding_edges
 from remap_fixtures import H_B, IN_H, IN_W, LO, arc_maps, concat_maps, edge_maps, ragged_maps
 from rigs import two_fisheye_rig
 from taps_fixtures import edge_probe_inputs
@@ -339,6 +343,169 @@ def test_pyramid_path_runs_no_matmul_on_card(cuda_device, monkeypatch):
     sm.stitch_batch([torch.from_numpy(f[None]).to(cuda_device) for f in frames])
     torch.cuda.synchronize()
     assert {k.split("_c")[0] for k in cuda_pyramid.COUNTS} == {"down", "up"}
+
+
+# prep kernel (csrc/prep.cu): every case byte for byte against the
+# eager ops (prep_yuv_reference) on the card
+PREP_FORMATS = ["yuv420p", "nv12"]
+BENCH_SEED = 2**31 + 23  # past 32 signed bits, as the benchmark's seeds may be
+
+
+def _as_format(buf, fmt):
+    """A packed YUV420P buffer [..., H*3/2, W] in ``fmt``."""
+    return buf if fmt == "yuv420p" else color.merge_frame(*color.split_frame(buf, "yuv420p"), fmt)
+
+
+def _prep_on_card(buf, fmt, vig, vig_half):
+    """The kernel's Y and U|V, after checking them byte for byte against
+    the eager ops on the same tensors, with one launch counted."""
+    before = cuda_prep.LAUNCHES
+    got = cuda_prep.prep_yuv(buf, fmt, vig, vig_half)
+    want = cuda_prep.prep_yuv_reference(buf, fmt, vig, vig_half)
+    torch.cuda.synchronize()
+    assert cuda_prep.LAUNCHES == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.uint8 and g.is_contiguous()
+        assert torch.equal(g, w), (g != w).sum().item()
+    return got
+
+
+def _random_prep_case(device, lead, h, w, seed, vig_lead=()):
+    rng = np.random.default_rng(seed)
+    buf = torch.from_numpy(rng.integers(0, 256, (*lead, h * 3 // 2, w), dtype=np.uint8)).to(device)
+    vig = torch.from_numpy(rng.uniform(0.3, 1.8, (*vig_lead, h, w)).astype(np.float32)).to(device)
+    vh = torch.from_numpy(rng.uniform(0.3, 1.8, (*vig_lead, h // 2, w // 2)).astype(np.float32)).to(device)
+    return buf, vig, vh
+
+
+@pytest.mark.parametrize("stack", ["per_camera", "six_frames"])
+@pytest.mark.parametrize("fmt", PREP_FORMATS)
+def test_prep_kernel_bench_frames_on_card(cuda_device, fmt, stack):
+    """The benchmark's 1920^2 frames (its generator, a large seed) with
+    the bench rig's vignettes: each camera's frame with its own maps, or
+    the six frames as one [6, ...] stack with [6, H, W] maps."""
+    from benchmark.frames import make_pool
+
+    frames = [_as_format(f, fmt) for f in make_pool(BENCH_SEED, 1, 6, (1920, 1920), cuda_device)[0]]
+    maps = [tuple(torch.from_numpy(m).to(cuda_device) for m in pair) for pair in bench_vignettes(1920, 1920)]
+    if stack == "six_frames":
+        _prep_on_card(torch.stack(frames), fmt, *(torch.stack(m) for m in zip(*maps)))
+        return
+    for f, (vig, vh) in zip(frames, maps):
+        _prep_on_card(f, fmt, vig, vh)
+
+
+PREP_GEOMETRIES = [(1082, 1922), (64, 56), (6, 10), (2, 2), (30, 1924)]
+
+
+@pytest.mark.parametrize("fmt", PREP_FORMATS)
+@pytest.mark.parametrize("hw", PREP_GEOMETRIES, ids=[f"{h}x{w}" for h, w in PREP_GEOMETRIES])
+def test_prep_kernel_even_geometries_on_card(cuda_device, hw, fmt):
+    """Even frame sizes whose width is not a multiple of 8 (the masked
+    last span), a multiple of 8 but not 16, and the smallest."""
+    buf, vig, vh = _random_prep_case(cuda_device, (), *hw, seed=hw[0] + hw[1])
+    _prep_on_card(_as_format(buf, fmt), fmt, vig, vh)
+
+
+@pytest.mark.parametrize("vig_lead", [(), (1,), (3,)], ids=["hw", "one_block", "per_block"])
+@pytest.mark.parametrize("fmt", PREP_FORMATS)
+def test_prep_kernel_block_stacks_on_card(cuda_device, fmt, vig_lead):
+    """[B, k, h*3/2, W] source blocks (the ShardedMapper's) in one
+    launch, with one vignette for all blocks or a slice per block."""
+    buf, vig, vh = _random_prep_case(cuda_device, (2, 3), 96, 256, seed=7, vig_lead=vig_lead)
+    y, uv = _prep_on_card(_as_format(buf, fmt), fmt, vig, vh)
+    assert y.shape == (2, 3, 1, 96, 256) and uv.shape == (2, 3, 2, 48, 128)
+
+
+@pytest.mark.parametrize("view", ["pitch", "pitch_offset2", "columns_strided", "vig_strided"])
+@pytest.mark.parametrize("fmt", PREP_FORMATS)
+def test_prep_kernel_strided_views_on_card(cuda_device, fmt, view):
+    """Non-contiguous inputs: frames that are a window of wider rows (an
+    aligned one and one 2 bytes in), frames whose columns are strided
+    (copied once by the wrapper), and vignettes that are windows of
+    wider maps."""
+    h, w = 64, 192
+    buf, vig, vh = _random_prep_case(cuda_device, (2,), h, w + 16, seed=11)
+    buf = _as_format(buf, fmt)
+    if view == "columns_strided":
+        frames = buf.transpose(-1, -2).contiguous().transpose(-1, -2)[..., :w]
+    else:
+        off = 2 if view == "pitch_offset2" else 8
+        frames = buf[..., off : off + w]
+    if view == "vig_strided":
+        vig, vh = vig[..., 4 : 4 + w], vh[..., 4 : 4 + w // 2]
+    else:
+        vig, vh = vig[..., :w].contiguous(), vh[..., : w // 2].contiguous()
+    assert not frames.is_contiguous()
+    _prep_on_card(frames, fmt, vig, vh)
+
+
+@pytest.mark.parametrize("fmt", PREP_FORMATS)
+def test_prep_kernel_rounding_edges_on_card(cuda_device, fmt):
+    """The rounding-edge frame: the kernel stores the two-rounding bytes
+    (``prep_numpy``), not those of a contracted multiply-add."""
+    buf, vig, vh = (t.to(cuda_device) for t in rounding_edges(fmt))
+    y, uv = _prep_on_card(buf, fmt, vig, vh)
+    want_y, want_uv = prep_numpy(buf.cpu(), fmt, vig.cpu(), vh.cpu())
+    np.testing.assert_array_equal(y[0].cpu().numpy(), want_y)
+    np.testing.assert_array_equal(uv.cpu().numpy(), want_uv)
+    _, fused_uv = prep_numpy(buf.cpu(), fmt, vig.cpu(), vh.cpu(), fused=True)
+    assert (uv.cpu().numpy() != fused_uv).sum() > 0
+
+
+def test_prep_wrapper_raises_on_card(cuda_device):
+    """On the card the wrapper refuses a vignette on the CPU and more
+    frames than a launch takes, and launches nothing."""
+    buf, vig, vh = _random_prep_case(cuda_device, (), 8, 16, seed=3)
+    before = cuda_prep.LAUNCHES
+    with pytest.raises(ValueError, match="vig: device cpu"):
+        cuda_prep.prep_yuv(buf, "yuv420p", vig.cpu(), vh)
+    with pytest.raises(RuntimeError, match="1 to 65,535 frames"):
+        cuda_prep.prep_yuv(buf.expand(65536, -1, -1), "yuv420p", vig, vh)
+    assert cuda_prep.LAUNCHES == before
+
+
+def _vignetted_frames(system):
+    """Frames with a vignette that one set's stitch preps: per Mapper,
+    its plan's inputs and overlays that have one."""
+    return sum(
+        ip.vignette is not None for m in system.mappers for ip in m.plan.inputs + m.plan.overlays
+    )
+
+
+@pytest.mark.parametrize("config", ["mono360_4k", "cyl3dv_2304"])
+def test_bench_stitch_with_prep_kernel_equals_eager_prep_on_card(cuda_device, monkeypatch, config):
+    """Both benchmark configurations through ``deploy.System`` (one Mapper
+    per output, captured on the first set and replayed on the next two):
+    every output and gain byte-equal to the same System whose prep is the
+    eager ops (``prep_yuv_reference`` patched in); a replayed set counts
+    one prep launch per frame with a vignette."""
+    from benchmark import spec
+    from benchmark.deploy import System
+    from benchmark.frames import make_pool
+
+    cfg = spec.config(spec.load(), config)
+    system = System(cfg, "cuda")
+    sets = make_pool(BENCH_SEED + 1, 3, system.n_cams, system.cam_size, cuda_device)
+    got = []
+    for k, frames in enumerate(sets):
+        if k == 2:
+            cuda_prep.reset_counts()
+        got.append(system.stitch(frames))
+    torch.cuda.synchronize()
+    counts = dict(cuda_prep.COUNTS)
+    n = _vignetted_frames(system)
+    assert n == (6 if config == "mono360_4k" else 32)
+    assert counts == {"yuv420p": n}
+    del system
+    monkeypatch.setattr(cuda_prep, "prep_yuv", cuda_prep.prep_yuv_reference)
+    plain = System(cfg, "cuda")
+    for k, (frames, (outs, gains)) in enumerate(zip(sets, got)):
+        want_outs, want_gains = plain.stitch(frames)
+        for o, wo in zip(outs, want_outs):
+            assert torch.equal(o, wo), (config, k)
+        for g, wg in zip(gains, want_gains):
+            assert (g is None and wg is None) or torch.equal(g, wg), (config, k)
 
 
 def _small_rig(device, canvas=(256, 128)):
