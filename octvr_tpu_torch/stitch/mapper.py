@@ -68,7 +68,12 @@ from .yuv_mode import half_mask, half_maps, half_roi, yuv_rgb_norm
 
 WORKING_MEGAPIX = 0.1  # mapper.cpp:43
 
-__all__ = ["FastMapper", "Mapper", "StitchPlan", "build_plan"]
+__all__ = ["FastMapper", "Mapper", "PLANS", "StitchPlan", "build_plan", "plan_shape"]
+
+# The shape of every plan that build_plan builds, summed (``plan_shape``'s
+# keys), so that a run can read what its remap grids and pyramid boxes
+# sweep; PLANS.reset() sets it to 0.
+PLANS = launch_counts.Counter()
 
 
 def _pool_pow2(x, s, col_mat=None):
@@ -272,6 +277,30 @@ def resize_plans(canvas_size, out_size, yuv):
     return full, (resize_plan(H // 2, W // 2, oh // 2, ow // 2) if yuv else None)
 
 
+def plan_shape(mt: MapperTemplate):
+    """The shape of a template's plan on the Y plane: ``plans`` 1, the
+    ``inputs`` of the rig and the ``empty_inputs`` among them, the
+    ``canvas_px``, and over the covering inputs the summed ROI box pixels
+    (``roi_px``), their valid pixels (``valid_px``), and the ``wrapped``
+    ROIs: those that span the canvas's width with valid pixels in both its
+    first and its last column (on an equirect canvas, a camera that sees
+    across +-180 degrees)."""
+    W, H = mt.out_size
+    live = [inp for inp in mt.inputs if not is_empty(inp)]
+    return {
+        "plans": 1,
+        "inputs": len(mt.inputs),
+        "empty_inputs": len(mt.inputs) - len(live),
+        "canvas_px": W * H,
+        "roi_px": sum(inp.roi[2] * inp.roi[3] for inp in live),
+        "valid_px": sum(int(np.count_nonzero(inp.mask)) for inp in live),
+        "wrapped": sum(
+            inp.roi[2] == W and bool(inp.mask[:, 0].any()) and bool(inp.mask[:, -1].any())
+            for inp in live
+        ),
+    }
+
+
 def build_plan(
     mt: MapperTemplate,
     in_sizes,
@@ -284,10 +313,12 @@ def build_plan(
     """Host (numpy) plan.  in_sizes: (H, W) per input, then per overlay
     input.  enable_gain: False, True or "blocks".  Over a template with
     empty inputs, the plan of the covering ones (see the module's
-    docstring); without a covering input it raises."""
+    docstring); without a covering input it raises.  Adds the plan's
+    ``plan_shape`` to ``PLANS``."""
     live = [k for k, inp in enumerate(mt.inputs) if not is_empty(inp)]
     if not live:
         raise ValueError("no input covers any output pixel")
+    PLANS.add(plan_shape(mt))
     if len(live) < len(mt.inputs):
         n = len(mt.inputs)
         idx = tuple(live) + tuple(range(n, n + len(mt.overlay_inputs)))
@@ -297,10 +328,15 @@ def build_plan(
             overlay_inputs=list(mt.overlay_inputs),
             seam_masks=[mt.seam_masks[k] for k in live],
         )
-        plan = build_plan(
+        plan = _covering_plan(
             covering, [in_sizes[i] for i in idx], blend, enable_gain, blend_dtype, pipeline, out_size
         )
         return replace(plan, frame_sizes=tuple(tuple(hw) for hw in in_sizes), frame_idx=idx)
+    return _covering_plan(mt, in_sizes, blend, enable_gain, blend_dtype, pipeline, out_size)
+
+
+def _covering_plan(mt, in_sizes, blend, enable_gain, blend_dtype, pipeline, out_size):
+    """:func:`build_plan` over a template whose every input covers."""
     W, H = mt.out_size
     out_size = tuple(out_size) if out_size else (W, H)
     yuv = pipeline == "yuv420"

@@ -102,9 +102,10 @@ def rounding_edges(fmt):
     return buf, torch.from_numpy(vig.reshape(h, w)), torch.from_numpy(vh.reshape(hc, wc))
 
 
-def bench_vignettes(h, w):
-    """Per camera of the benchmark rig (benchmark/configs/mono360_4k.json),
-    its vignette maps at frame size (h, w) as the Mapper's plan holds
-    them: ``vignette_maps`` of the camera's 512^2 map, f32 numpy pairs."""
-    config = json.loads((ROOT / "benchmark" / "configs" / "mono360_4k.json").read_text())
+def bench_vignettes(h, w, config="mono360_4k"):
+    """Per camera of a benchmark configuration's rig (the bench rig of
+    benchmark/configs/mono360_4k.json by default), its vignette maps at
+    frame size (h, w) as the Mapper's plan holds them: ``vignette_maps``
+    of the camera's 512^2 map, f32 numpy pairs."""
+    config = json.loads((ROOT / "benchmark" / "configs" / f"{config}.json").read_text())
     return [vignette_maps(vignette_map(inp["options"]), h, w, True) for inp in config["rig"]["inputs"]]

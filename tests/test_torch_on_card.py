@@ -7,7 +7,9 @@ TF32 set after the capture, a polar cap with an empty input), and the
 three kernels of the MXU-taps probe (kernel 8) against their plain
 torch versions, the prep kernel against the eager prep byte for byte
 (the bench rig's frames, odd geometries, block stacks, strided views,
-the rounding edges, both benchmark configurations' stitch), and the
+the rounding edges, the 16-frame ring stack in a graph, the benchmark
+configurations' stitch), the 16-camera ring's graph against its eager
+stitch, and the
 port's Mapper and ShardedMapper (every option group) on the card
 against the port on the CPU, and the band group
 across two gloo ranks that share the card.  They carry the
@@ -395,6 +397,44 @@ def test_prep_kernel_bench_frames_on_card(cuda_device, fmt, stack):
         _prep_on_card(f, fmt, vig, vh)
 
 
+RING = (2028, 2704)  # odyssey16_4k's frames (H, W): 2.7K 4:3
+
+
+def test_prep_kernel_ring_stack_on_card(cuda_device):
+    """The odyssey16_4k ring's 16 frames as one [16, 3042, 2704] stack
+    with [16, 2028, 2704] vignettes (non-square, 2704 luma and 1352
+    chroma columns): byte-equal to ``prep_yuv_reference`` in one launch;
+    then captured in a CUDA graph and replayed over a second set, each
+    replay counting one launch and storing the eager ops' bytes."""
+    from benchmark.frames import make_pool
+    from octvr_tpu_torch.ops import launch_counts
+
+    sets = [torch.stack(fs) for fs in make_pool(BENCH_SEED + 3, 2, 16, RING, cuda_device)]
+    vig, vh = (torch.stack([torch.from_numpy(m) for m in pair]).to(cuda_device)
+               for pair in zip(*bench_vignettes(*RING, config="odyssey16_4k")))
+    assert tuple(sets[0].shape) == (16, 3042, 2704) and tuple(vig.shape) == (16, *RING)
+    _prep_on_card(sets[0], "yuv420p", vig, vh)
+    static = sets[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_prep.prep_yuv(static, "yuv420p", vig, vh)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with launch_counts.deferred() as held:
+        with torch.cuda.graph(graph):
+            outs = cuda_prep.prep_yuv(static, "yuv420p", vig, vh)
+    for buf in sets:
+        static.copy_(buf)
+        before = cuda_prep.LAUNCHES
+        graph.replay()
+        launch_counts.replay(held)
+        torch.cuda.synchronize()
+        assert cuda_prep.LAUNCHES == before + 1
+        for g, w in zip(outs, cuda_prep.prep_yuv_reference(buf, "yuv420p", vig, vh)):
+            assert torch.equal(g, w), (g != w).sum().item()
+
+
 PREP_GEOMETRIES = [(1082, 1922), (64, 56), (6, 10), (2, 2), (30, 1924)]
 
 
@@ -506,6 +546,38 @@ def test_bench_stitch_with_prep_kernel_equals_eager_prep_on_card(cuda_device, mo
             assert torch.equal(o, wo), (config, k)
         for g, wg in zip(gains, want_gains):
             assert (g is None and wg is None) or torch.equal(g, wg), (config, k)
+
+
+def test_ring_replay_equals_eager_on_card(cuda_device):
+    """The benchmark's odyssey16_4k ring at its published size (16
+    portrait 2704x2028 fisheyes, seven ROIs across +-180 degrees) through
+    ``deploy.System``: the first set captures the graph and the next two
+    replay it, each output and gain byte-equal to the Mapper's eager run
+    of the same frames; a replayed set counts the remap, pyramid and prep
+    launches of one eager call, one prep launch per camera."""
+    from benchmark import spec
+    from benchmark.deploy import System
+    from benchmark.frames import make_pool
+
+    system = System(spec.config(spec.load(), "odyssey16_4k"), "cuda")
+    (m,) = system.mappers
+    assert m.num_inputs == 16 and m.in_sizes == [RING] * 16
+    sets = make_pool(BENCH_SEED + 2, 3, system.n_cams, system.cam_size, cuda_device)
+    got = [system.stitch(s) for s in sets]
+    for k, (s, (outs, gains)) in enumerate(zip(sets, got)):
+        eo, eg = m._stitch_eager(s)
+        assert torch.equal(outs[0], eo) and torch.equal(gains[0], eg), k
+    counters = (cuda_remap, cuda_pyramid, cuda_prep)
+    for c in counters:
+        c.reset_counts()
+    m._stitch_eager(sets[0])
+    eager = [dict(c.COUNTS) for c in counters]
+    for c in counters:
+        c.reset_counts()
+    system.stitch(sets[0])
+    torch.cuda.synchronize()
+    assert [dict(c.COUNTS) for c in counters] == eager
+    assert eager[2] == {"yuv420p": 16} and all(eager)
 
 
 def _small_rig(device, canvas=(256, 128)):
