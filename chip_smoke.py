@@ -229,7 +229,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import types
 
 import numpy as np
 import torch
@@ -1381,13 +1380,31 @@ def make_frame_sets(n=ITERS):
 def _pyramid_counts(plan, dtype="bf16"):
     """{variant: launches} of the pyramid kernels in one stitch of a
     yuv420 Mapper's ``plan``: per multiband blend (Y at C=1, U|V at C=2)
-    and image, B downs and B Laplacian accumulates, and B collapse
+    a grouped down per level and camera chunk, one gathering accumulate
+    per chunk of its tables (``blenders.pyramid_groups``), and B collapse
     steps."""
+    from octvr_tpu_torch.stitch.blenders import pyramid_groups
+
     counts = {}
     for bl, c in ((plan.blender, 1), (plan.blender_uv, 2)):
-        n, b = len(bl.align_rois), bl.num_bands
-        counts.update({f"down_c{c}_{dtype}": n * b, f"up_lap_c{c}_{dtype}": n * b, f"up_add_c{c}_{dtype}": b})
+        groups, b = pyramid_groups(bl), bl.num_bands
+        counts.update({f"down_group_c{c}_{dtype}": b * len(groups.cam_chunks),
+                       f"lap_gather_c{c}_{dtype}": len(groups.lap), f"up_add_c{c}_{dtype}": b})
     return counts
+
+
+def _cameras_a_grouped_launch(plan):
+    """The cameras that a grouped pyramid launch of one stitch of a
+    yuv420 Mapper's ``plan`` serves, on average over its two blends'
+    grouped launches (from their tables)."""
+    from octvr_tpu_torch.stitch.blenders import pyramid_groups
+
+    served = []
+    for bl in (plan.blender, plan.blender_uv):
+        groups = pyramid_groups(bl)
+        served += [len(ch) for ch in groups.cam_chunks] * bl.num_bands
+        served += [len(cams) for _, cams, _ in groups.lap_chunks]
+    return sum(served) / len(served)
 
 
 def phase_main_path(mt, t_template, frame_sets):
@@ -1437,7 +1454,7 @@ def phase_main_path(mt, t_template, frame_sets):
         raise AssertionError(f"expected {ITERS + 1} launches of each of nc1_bf16 and nc2_bf16")
     per_set = _pyramid_counts(mapper.plan)
     log(f"  pyramid kernel launches: {cuda_pyramid.LAUNCHES} over {ITERS + 1} frames: {pyr_counts} "
-        f"(a set: {per_set})")
+        f"(a set: {per_set}; {_cameras_a_grouped_launch(mapper.plan):.2f} cameras a grouped launch)")
     if pyr_counts != {k: (ITERS + 1) * v for k, v in per_set.items()}:
         raise AssertionError(f"expected {ITERS + 1} sets of the pyramid launches {per_set}")
     log(f"  prep kernel launches: {cuda_prep.LAUNCHES} over {ITERS + 1} frames: {prep_counts}")
@@ -1615,20 +1632,23 @@ def phase_stitch_batch(mapper, frame_sets, ms_stitch):
 def _pyramid_bytes(plan, c, itemsize):
     """Bytes that the pyramid kernels of one multiband blend over
     ``plan`` on C-channel images must move, each read or written once:
-    per image and level i < B a down step (reads level i, writes i + 1)
-    and a Laplacian accumulate (reads level i + 1, level i of the
-    Gaussian, its weight level once for all channels and the band
-    window; writes the window); per canvas level i < B a collapse step
-    (reads the coarser sum, the band level and its inverse weight once
-    for all channels; writes the sum)."""
+    per image and level i < B a grouped down step (reads level i, writes
+    i + 1); the gathering accumulate, which reads per image and level
+    i < B its levels i + 1 and i and its weight level once for all
+    channels, at level B its level B and weight level, and writes each
+    band level once (never reads it); per canvas level i < B a collapse
+    step (reads the coarser sum, the band level and its inverse weight
+    once for all channels; writes the sum)."""
     B = plan.num_bands
     n = 0
     for _, _, aw, ah in plan.align_rois:
         for i in range(B):
             fine, coarse = (ah >> i) * (aw >> i), (ah >> (i + 1)) * (aw >> (i + 1))
             n += c * (fine + coarse)  # down
-            n += c * coarse + 3 * c * fine + fine  # Laplacian accumulate
+            n += c * coarse + c * fine + fine  # gather, level i
+        n += (c + 1) * (ah >> B) * (aw >> B)  # gather, level B
     _, _, arw, arh = plan.align_result_roi
+    n += sum(c * (arh >> i) * (arw >> i) for i in range(B + 1))  # the band levels, written once
     for i in range(B):
         fine, coarse = (arh >> i) * (arw >> i), (arh >> (i + 1)) * (arw >> (i + 1))
         n += c * coarse + 2 * c * fine + fine  # collapse
@@ -1637,18 +1657,22 @@ def _pyramid_bytes(plan, c, itemsize):
 
 @contextlib.contextmanager
 def _pyramid_ops(**ops):
-    """Inside, ``blenders.multiband_blend`` (the blend the Mapper runs)
-    takes its pyramid steps from ``ops`` (``down``, ``up_laplacian``,
-    ``up_collapse``, as ``ops.cuda_pyramid`` has them) in place of
-    ``ops.cuda_pyramid``'s."""
-    from octvr_tpu_torch.stitch import blenders
+    """Inside, the entries of ``ops.cuda_pyramid`` named in ``ops`` are
+    ``ops``' functions: ``down_group``, ``lap_gather`` and
+    ``up_collapse``, which ``blenders.multiband_blend`` (the blend the
+    Mapper runs) calls; ``down`` and ``up_laplacian``, which the
+    stepwise compositions (``down_group_stepwise``,
+    ``lap_gather_stepwise``) call."""
+    from octvr_tpu_torch.ops import cuda_pyramid as cp
 
-    real = blenders.cuda_pyramid
-    blenders.cuda_pyramid = types.SimpleNamespace(**ops)
+    real = {name: getattr(cp, name) for name in ops}
+    for name, fn in ops.items():
+        setattr(cp, name, fn)
     try:
         yield
     finally:
-        blenders.cuda_pyramid = real
+        for name, fn in real.items():
+            setattr(cp, name, fn)
 
 
 def _one_rounding(k, t32):
@@ -1670,39 +1694,62 @@ def _one_rounding(k, t32):
 
 
 def _checked_pyramid_ops(checks):
-    """The pyramid kernels, each launch checked against its plain
-    version on the launch's own inputs: a down or up step's store is a
+    """The pyramid kernels of the blend, grouped and per step, each launch
+    checked on its own inputs: a per-step down or up step's store is a
     rounding of the banded product's f32 sum (``_one_rounding``, whose
-    result goes to ``checks``); the Laplacian accumulate and the collapse
-    equal, bit for bit, the eager ops on the card applied to the plain up
-    step."""
+    result goes to ``checks``); the per-step Laplacian accumulate and the
+    collapse equal, bit for bit, the eager ops on the card applied to the
+    checked up step; each camera's level of a grouped down step equals
+    the checked per-step ``down`` of its level, and the gathering
+    accumulate's bands ``lap_gather_stepwise`` over the checked per-step
+    ``up_laplacian``, byte for byte.  Returns the checked ``down_group``,
+    ``lap_gather`` and ``up_collapse`` for ``_pyramid_ops``."""
     from octvr_tpu_torch.ops import cuda_pyramid as cp
     from octvr_tpu_torch.ops.pyramid import pyr_down_mm, pyr_up_mm
 
+    names = ("down", "up", "up_laplacian", "up_collapse", "down_group", "lap_gather")
+    real = {name: getattr(cp, name) for name in names}
+
     def down(x, mats):
-        got = cp.down(x, mats)
+        got = real["down"](x, mats)
         checks.append(_one_rounding(got, pyr_down_mm(x, mats[x.shape[-2]], mats[x.shape[-1]])))
         return got
 
     def up(x, mats):
-        got = cp.up(x, mats)
+        got = real["up"](x, mats)
         checks.append(_one_rounding(got, pyr_up_mm(x, mats[x.shape[-2]], mats[x.shape[-1]])))
         return got
 
     def up_laplacian(dst, g, x, w, mats):
         want = dst + (g - up(x, mats)) * w
-        cp.up_laplacian(dst, g, x, w, mats)
+        real["up_laplacian"](dst, g, x, w, mats)
         if not torch.equal(dst, want):
             raise AssertionError(f"Laplacian accumulate of {tuple(x.shape)} differs from the eager ops")
         return dst
 
     def up_collapse(x, d, s, mats):
-        got = cp.up_collapse(x, d, s, mats)
+        got = real["up_collapse"](x, d, s, mats)
         if not torch.equal(got, up(x, mats) + d * s):
             raise AssertionError(f"collapse step of {tuple(x.shape)} differs from the eager ops")
         return got
 
-    return {"down": down, "up_laplacian": up_laplacian, "up_collapse": up_collapse}
+    def down_group(groups, i, x, mats):
+        got = real["down_group"](groups, i, x, mats)
+        for k in range(groups.cameras):
+            if not torch.equal(groups.level(got, i + 1, k), down(groups.level(x, i, k), mats)):
+                raise AssertionError(f"grouped down of level {i}, camera {k}, differs from the per-step down")
+        return got
+
+    def lap_gather(groups, gauss, mats):
+        got = real["lap_gather"](groups, gauss, mats)
+        with _pyramid_ops(up_laplacian=up_laplacian):
+            want = cp.lap_gather_stepwise(groups, gauss, mats)
+        for i, (a, b) in enumerate(zip(got, want)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"gathered band level {i} of {tuple(a.shape)} differs from the per-camera steps")
+        return got
+
+    return {"down_group": down_group, "lap_gather": lap_gather, "up_collapse": up_collapse}
 
 
 def _profiled_ms(fn, words, calls=5):
@@ -1729,20 +1776,27 @@ def phase_pyramid_device_time(mapper):
     C=1; U|V: 5 bands, C=2; bf16), run through ``multiband_blend``, the
     function the Mapper calls: the kernels' device time per blend
     (``ms``, torch.profiler), beside their byte bound (``_pyramid_bytes``
-    at 3.35 TB/s) and the plain steps on the card (the banded products
-    and the eager ops, which cuBLAS and torch run: the library yardstick,
-    the parent's path; the plain blend's device time less the blend's
-    other ops); the launches against ``_pyramid_counts``; then, in bf16
-    and in f32 on the same plans and images, every launch against its
-    plain version on its own inputs (``_checked_pyramid_ops``)."""
+    at 3.35 TB/s), the per-step kernels of the same blend composed
+    camera by camera (``step_ms``: ``down_group_stepwise`` and
+    ``lap_gather_stepwise``, ``down`` and ``up_laplacian`` per camera and
+    level and the eager level-B adds, the same collapse) and the plain
+    steps on the card (the banded products and the eager ops, which
+    cuBLAS and torch run, in the stepwise compositions: the library
+    yardstick; the plain blend's device time less the blend's other
+    ops); the launches against ``_pyramid_counts``; then, in bf16 and in
+    f32 on the same plans and images, every grouped launch against the
+    per-step kernels and every per-step launch against its plain version
+    on its own inputs (``_checked_pyramid_ops``)."""
     import dataclasses
 
     from octvr_tpu_torch.ops import cuda_pyramid as cp
     from octvr_tpu_torch.stitch.blenders import multiband_blend
 
     log("== 5d. pyramid kernels at the 4K plan's shapes: device ms per blend, byte bound, banded products")
-    plain = {"down": cp.down_reference, "up_laplacian": cp.up_laplacian_reference,
+    stepwise = {"down_group": cp.down_group_stepwise, "lap_gather": cp.lap_gather_stepwise}
+    plain = {**stepwise, "down": cp.down_reference, "up_laplacian": cp.up_laplacian_reference,
              "up_collapse": cp.up_collapse_reference}
+    kernels = ("pyr_down_group_kernel", "pyr_lap_gather_kernel", "pyr_up_kernel")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = {}
@@ -1757,7 +1811,9 @@ def phase_pyramid_device_time(mapper):
         cp.reset_counts()
         blend()
         launches = cp.LAUNCHES
-        blend_ms, ms = _profiled_ms(blend, ("pyr_down_kernel", "pyr_up_kernel"))
+        blend_ms, ms = _profiled_ms(blend, kernels)
+        with _pyramid_ops(**stepwise):
+            step_ms = _profiled_ms(blend, ("pyr_down_kernel", "pyr_up_kernel"))[1]
         call_ms = steady_ms(blend)[0]
         with _pyramid_ops(**plain):
             plain_ms = _profiled_ms(blend, ())[0]
@@ -1774,26 +1830,30 @@ def phase_pyramid_device_time(mapper):
             multiband_blend(bl32, [i.float() for i in imgs], canvas)
         torch.cuda.synchronize()
         share, err = (max(v) for v in zip(*checks))
-        log(f"  {label}: {launches} launches, kernels {ms:.4f} ms of the blend's {blend_ms:.4f} device ms, "
+        log(f"  {label}: {launches} launches, kernels {ms:.4f} ms of the blend's {blend_ms:.4f} device ms "
+            f"(per-camera steps {step_ms:.4f} ms), "
             f"call {call_ms:.4f} ms; {nbytes / 1e6:.1f} MB, bound {bound_ms:.4f} ms, share {bound_ms / ms:.3f}; "
             f"banded products and eager ops {lib_ms:.4f} ms ({lib_ms / ms:.1f}x; the plain blend {plain_ms:.4f}); "
             f"{len(checks)} steps in bf16 and f32 each a rounding of its banded product: bf16 at most "
             f"{share:.2e} of a step's outputs off the twin's rounding (bar <= 1e-3), f32 max abs err {err:.3g} "
-            f"(bar <= 1e-4); epilogues equal to the eager ops")
+            f"(bar <= 1e-4); grouped downs and gathered bands equal to the per-step kernels, Laplacian steps "
+            f"and collapse to the eager ops")
         if not share <= 1e-3:
             raise AssertionError(f"pyramid kernels round apart from the banded products at the 4K {label} plan")
         if not bound_ms < ms:
             raise AssertionError(f"the {label} pyramid kernels beat their byte bound: bytes or time miscounted")
-        rows[label] = {"launches": launches, "err": err, "ms": ms, "call_ms": call_ms, "plain_ms": lib_ms,
-                       "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms}
+        rows[label] = {"launches": launches, "err": err, "ms": ms, "step_ms": step_ms, "call_ms": call_ms,
+                       "plain_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms}
         del imgs
     launches = rows["Y"]["launches"] + rows["U|V"]["launches"]
     if launches != sum(_pyramid_counts(mapper.plan).values()):
         raise AssertionError(f"{launches} pyramid launches in the two blends, expected {_pyramid_counts(mapper.plan)}")
-    total = {k: rows["Y"][k] + rows["U|V"][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms")}
+    total = {k: rows["Y"][k] + rows["U|V"][k]
+             for k in ("ms", "step_ms", "call_ms", "plain_ms", "bound_ms", "library_ms")}
     total.update(err=max(r["err"] for r in rows.values()), bound_by="bytes")
-    log(f"  a set's two blends: kernels {total['ms']:.4f} device ms, bound {total['bound_ms']:.4f} ms, share "
-        f"{total['bound_ms'] / total['ms']:.3f}; banded products and eager ops {total['library_ms']:.4f} ms")
+    log(f"  a set's two blends: kernels {total['ms']:.4f} device ms (per-camera steps {total['step_ms']:.4f}), "
+        f"bound {total['bound_ms']:.4f} ms, share {total['bound_ms'] / total['ms']:.3f}; banded products and "
+        f"eager ops {total['library_ms']:.4f} ms")
     return total
 
 
@@ -3520,7 +3580,8 @@ def distributed_only(smi):
 
 _KERNEL_CLASSES = (
     ("remap (csrc/remap.cu)", ("remap_kernel", "remap_frames_kernel")),
-    ("pyramid (csrc/pyramid.cu)", ("pyr_down_kernel", "pyr_up_kernel")),
+    ("pyramid (csrc/pyramid.cu)", ("pyr_down_kernel", "pyr_up_kernel", "pyr_down_group_kernel",
+                                   "pyr_lap_gather_kernel")),
     ("matmul (pyramid, pooling)", ("gemm", "xmma", "cutlass")),
     ("dtype casts and copies", ("copy",)),
     ("reductions (gain sums)", ("reduce",)),
@@ -3657,7 +3718,8 @@ def main(argv):
         + ", ".join(f"{v:.3f}" for v in distributed["10c"]) + f"; 10f multihost_stitch frames/s "
         + ", ".join(f"{v}" for v in distributed["10f"]) + f"; phase 6 {distributed['p6_ms']:.3f}")
     log(f"4K pyramid kernels (5d), a set's two blends: device {pyramid['ms']:.4f} ms (share of bound "
-        f"{pyramid['bound_ms'] / pyramid['ms']:.3f}); call {pyramid['call_ms']:.4f}; banded products "
+        f"{pyramid['bound_ms'] / pyramid['ms']:.3f}; per-camera steps {pyramid['step_ms']:.4f}); call "
+        f"{pyramid['call_ms']:.4f}; banded products "
         f"{pyramid['library_ms']:.4f}; {main_path['pyramid_launches'] // (ITERS + 1)} launches a set")
     log(f"4K prep kernel (5e), six frames: device {prep['ms']:.4f} ms (share of bound "
         f"{prep['bound_ms'] / prep['ms']:.3f}); call {prep['call_ms']:.4f}; eager ops {prep['plain_ms']:.4f}; "

@@ -18,6 +18,7 @@ import torch
 from scipy.ndimage import correlate1d, distance_transform_edt
 
 from ..ops import cuda_pyramid
+from ..ops.cuda_pyramid import PyramidGroups
 from ..ops.pyramid import down_matrix, up_matrix
 from ..utils.device import tree_to
 
@@ -196,48 +197,57 @@ def build_multiband_plan(
 
 
 def multiband_blend(plan: MultiBandPlan, imgs, canvas_size):
-    """imgs: [C, rh, rw] warped images (roi-sized), any float dtype.
+    """imgs: [..., C, rh, rw] warped images (roi-sized), any float dtype.
     ``plan`` is a device plan (MultiBandPlan.to).  Builds per-image
     Laplacian pyramids in ``plan.compute_dtype``, accumulates the
     weighted bands, normalizes and collapses (blenders.cpp:676-736).
-    The pyramid steps are ``ops.cuda_pyramid``'s: on the CPU the banded
-    products (each in f32, cast back after it) and eager ops, on the card
-    the stencil kernels with the Laplacian accumulate and the collapse's
-    normalize-and-add fused in, rounding to the compute dtype after each
-    op alike.  Returns an f32 [C, H, W] canvas."""
+    The pyramid steps are ``ops.cuda_pyramid``'s, per level over all the
+    images (``_grouped_bands``): on the CPU the banded products (each in
+    f32, cast back after it) and eager ops, image by image; on the card
+    the stencil kernels, the bands summed over the images in one
+    gathering launch, and the collapse's normalize-and-add fused in;
+    rounding to the compute dtype after each op alike.  Returns an f32
+    [..., C, H, W] canvas."""
+    dst_pyr = _grouped_bands(plan, imgs)
     B = plan.num_bands
     arx, ary, arw, arh = plan.align_result_roi
-    c = imgs[0].shape[0]
-    dtype = _DTYPES[plan.compute_dtype]
-    dev = imgs[0].device
-
-    dst_pyr = [
-        torch.zeros((c, arh >> i, arw >> i), dtype=dtype, device=dev)
-        for i in range(B + 1)
-    ]
-    for img, roi, aroi, wpyr in zip(imgs, plan.rois, plan.align_rois, plan.weight_pyrs):
-        x, y, w, h = roi
-        ax, ay, aw, ah = aroi
-        src0 = torch.zeros((c, ah, aw), dtype=dtype, device=dev)
-        src0[:, y - ay : y - ay + h, x - ax : x - ax + w] = img.to(dtype)
-        gauss = [src0]
-        for _ in range(B):
-            gauss.append(cuda_pyramid.down(gauss[-1], plan.down_mats))
-        for i in range(B + 1):
-            ox, oy = (ax - arx) >> i, (ay - ary) >> i
-            dst = dst_pyr[i][:, oy : oy + (ah >> i), ox : ox + (aw >> i)]
-            if i < B:
-                cuda_pyramid.up_laplacian(dst, gauss[i], gauss[i + 1], wpyr[i], plan.up_mats)
-            else:
-                dst += gauss[B] * wpyr[B][None]
-
     acc = dst_pyr[B] * plan.inv_band_weights[B][None]
     for i in range(B - 1, -1, -1):
         acc = cuda_pyramid.up_collapse(acc, dst_pyr[i], plan.inv_band_weights[i], plan.up_mats)
 
     w, h = canvas_size
-    canvas = torch.zeros((c, h, w), dtype=torch.float32, device=dev)
+    canvas = torch.zeros((*acc.shape[:-2], h, w), dtype=torch.float32, device=acc.device)
     cw = min(arw, w - arx)
     ch = min(arh, h - ary)
-    canvas[:, ary : ary + ch, arx : arx + cw] = acc[:, :ch, :cw].float()
+    canvas[..., ary : ary + ch, arx : arx + cw] = acc[..., :ch, :cw].float()
     return canvas
+
+
+def pyramid_groups(plan: MultiBandPlan):
+    """The grouped launches' tables of device plan ``plan``
+    (``cuda_pyramid.PyramidGroups`` over its weight levels), built on the
+    first call and kept with the plan."""
+    groups = plan.__dict__.get("_pyramid_groups")
+    if groups is None:
+        groups = PyramidGroups(plan.align_rois, plan.align_result_roi, plan.num_bands, plan.weight_pyrs)
+        plan.__dict__["_pyramid_groups"] = groups
+    return groups
+
+
+def _grouped_bands(plan: MultiBandPlan, imgs):
+    """The band levels [..., C, h_i, w_i] of a blend, level by level over
+    all the images: the images pasted into one level-0 arena, each
+    Gaussian level of every image by one ``down_group``, the weighted
+    Laplacian levels summed in image order by one ``lap_gather``."""
+    groups = pyramid_groups(plan)
+    dtype = _DTYPES[plan.compute_dtype]
+    arena = torch.zeros((*imgs[0].shape[:-2], groups.arena_sizes[0]), dtype=dtype, device=imgs[0].device)
+    for k, (img, roi, aroi) in enumerate(zip(imgs, plan.rois, plan.align_rois)):
+        x, y, w, h = roi
+        ax, ay = aroi[:2]
+        groups.level(arena, 0, k)[..., y - ay : y - ay + h, x - ax : x - ax + w] = img.to(dtype)
+    gauss = [arena]
+    for i in range(plan.num_bands):
+        gauss.append(cuda_pyramid.down_group(groups, i, gauss[-1], plan.down_mats))
+    return cuda_pyramid.lap_gather(groups, gauss, plan.up_mats)
+

@@ -20,6 +20,7 @@ This file imports no JAX, so it also runs where JAX is absent:
 """
 
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -303,7 +304,8 @@ def test_multiband_blend_on_card_matches_cpu(cuda_device, seed, c, dtype):
     the CPU (the banded products): f32 within 1e-3 (the JAX package's
     bar), bf16 within the bf16 bars (mean < 1.5, 99th percentile < 6)
     of the CPU's bf16 and of its f32; a blend of B bands launches B
-    downs and B Laplacian accumulates per image and B collapse steps."""
+    grouped downs and one gathering accumulate over all its images and
+    B collapse steps."""
     masks, rois, imgs, bands = blend_scene(seed, c=c)
     plan = blenders.build_multiband_plan(masks, rois, bands, CANVAS, dtype=dtype)
     ref = blenders.multiband_blend(plan.to("cpu"), [torch.from_numpy(i) for i in imgs], CANVAS)
@@ -311,8 +313,7 @@ def test_multiband_blend_on_card_matches_cpu(cuda_device, seed, c, dtype):
     cuda_pyramid.reset_counts()
     got = blenders.multiband_blend(dplan, [torch.from_numpy(i).to(cuda_device) for i in imgs], CANVAS).cpu()
     tag = "bf16" if dtype == "bfloat16" else "f32"
-    n = len(imgs)
-    assert cuda_pyramid.COUNTS == {f"down_c{c}_{tag}": n * bands, f"up_lap_c{c}_{tag}": n * bands,
+    assert cuda_pyramid.COUNTS == {f"down_group_c{c}_{tag}": bands, f"lap_gather_c{c}_{tag}": 1,
                                    f"up_add_c{c}_{tag}": bands}
     if dtype == "float32":
         assert (got - ref).abs().max().item() < 1e-3
@@ -323,6 +324,135 @@ def test_multiband_blend_on_card_matches_cpu(cuda_device, seed, c, dtype):
     for r in (ref, ref32):
         d = (got - r).abs()
         assert d.mean().item() < 1.5 and torch.quantile(d.flatten(), 0.99).item() < 6.0
+
+
+def _stepwise():
+    """Inside, the blend composes its pyramids from the per-step kernels
+    camera by camera (``down``, ``up_laplacian``, the eager level-B add:
+    ``cuda_pyramid.down_group_stepwise`` and ``lap_gather_stepwise``), the
+    card's path before the grouped launches."""
+    return mock.patch.multiple(cuda_pyramid, down_group=cuda_pyramid.down_group_stepwise,
+                               lap_gather=cuda_pyramid.lap_gather_stepwise)
+
+
+def _stepwise_blend(plan, imgs, canvas):
+    """``multiband_blend`` inside ``_stepwise()``."""
+    with _stepwise():
+        return blenders.multiband_blend(plan, imgs, canvas)
+
+
+def _group_counts(plan, c, tag):
+    """COUNTS of one grouped blend over ``plan``: per camera chunk a
+    grouped down per level, a gather per level and camera chunk, and B
+    collapse steps."""
+    groups = blenders.pyramid_groups(plan)
+    B = plan.num_bands
+    return {f"down_group_c{c}_{tag}": B * len(groups.cam_chunks), f"lap_gather_c{c}_{tag}": len(groups.lap),
+            f"up_add_c{c}_{tag}": B}
+
+
+# (scene, channels, lead): one camera; three; the 16 cameras of two
+# clusters with an empty camera and uncovered band pixels; 36 cameras,
+# more than one launch holds; a [2, C] batch of three
+GROUP_SCENES = {"one": (3, ()), "three": (2, ()), "ring16": (1, ()), "split36": (1, ()), "batch": (3, (2,))}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("scene", sorted(GROUP_SCENES))
+def test_grouped_blend_equals_stepwise_on_card(cuda_device, scene, dtype):
+    """multiband_blend on the card (one grouped down per level and one
+    gathering accumulate over all the cameras) equals, byte for byte,
+    the same blend composed from the per-step kernels and the eager
+    level-B add, band levels and canvas; a band pixel no camera's aligned
+    ROI reaches is 0; the launches are counted exactly."""
+    from blend_fixtures import RING_CANVAS, ring_scene
+
+    c, lead = GROUP_SCENES[scene]
+    if scene in ("ring16", "split36"):
+        masks, rois, imgs, bands = ring_scene(11, c=c, n=16 if scene == "ring16" else 36)
+        canvas = RING_CANVAS
+    else:
+        masks, rois, imgs, bands = blend_scene(5, c=c, n=1 if scene == "one" else 3)
+        canvas = CANVAS
+    plan = blenders.build_multiband_plan(masks, rois, bands, canvas, dtype=dtype).to(cuda_device)
+    ts = [torch.from_numpy(i).to(cuda_device) for i in imgs]
+    if lead:
+        ts = [torch.stack([t, 255 - t]) for t in ts]
+    tag = "bf16" if dtype == "bfloat16" else "f32"
+    cuda_pyramid.reset_counts()
+    got = blenders.multiband_blend(plan, ts, canvas)
+    torch.cuda.synchronize()
+    assert cuda_pyramid.COUNTS == _group_counts(plan, c, tag)
+    assert not any(k.startswith(("down_c", "up_lap")) for k in cuda_pyramid.COUNTS)
+    if scene != "split36":
+        assert cuda_pyramid.COUNTS == {f"down_group_c{c}_{tag}": bands, f"lap_gather_c{c}_{tag}": 1,
+                                       f"up_add_c{c}_{tag}": bands}
+    want = _stepwise_blend(plan, ts, canvas)
+    assert got.shape == (*lead, c, canvas[1], canvas[0]) and torch.equal(got, want)
+    grouped = blenders._grouped_bands(plan, ts)
+    with _stepwise():
+        stepwise = blenders._grouped_bands(plan, ts)
+    groups = blenders.pyramid_groups(plan)
+    for i, (g, s) in enumerate(zip(grouped, stepwise)):
+        assert torch.equal(g, s), i
+        covered = torch.zeros(groups.band_shapes[i], dtype=torch.bool, device=cuda_device)
+        for (y, x), (h, w) in zip(groups.origins[i], groups.shapes[i]):
+            covered[y : y + h, x : x + w] = True
+        assert not bool((g[..., ~covered] != 0).any()), i
+        if scene in ("ring16", "split36"):
+            assert not bool(covered.all()), i
+
+
+@pytest.mark.parametrize("config", ["mono360_4k", "cyl3dv_2304", "odyssey16_4k"])
+def test_bench_stitch_grouped_pyramid_equals_stepwise_on_card(cuda_device, monkeypatch, config):
+    """The benchmark configurations through ``deploy.System`` (the first
+    set captured, the next two replayed): every output and gain equals,
+    byte for byte, a System whose blends take the per-camera steps; a
+    replayed set counts per multiband blend its grouped downs, gathers
+    and collapse steps and no per-camera step; on the 4K plan's six
+    cameras the f32 blend equals its stepwise composition too."""
+    from benchmark import spec
+    from benchmark.deploy import System
+    from benchmark.frames import make_pool
+
+    cfg = spec.config(spec.load(), config)
+    system = System(cfg, "cuda")
+    sets = make_pool(BENCH_SEED + 5, 3, system.n_cams, system.cam_size, cuda_device)
+    got = []
+    for k, frames in enumerate(sets):
+        if k == 2:
+            cuda_pyramid.reset_counts()
+        got.append(system.stitch(frames))
+    torch.cuda.synchronize()
+    want = {}
+    for m in system.mappers:
+        if m.plan.blend_kind != "multiband":
+            continue
+        for bl, c in ((m.plan.blender, 1), (m.plan.blender_uv, 2)):
+            for key, v in _group_counts(bl, c, "bf16").items():
+                want[key] = want.get(key, 0) + v
+    assert cuda_pyramid.COUNTS == want
+    if config == "mono360_4k":
+        gen = torch.Generator(device=cuda_device)
+        gen.manual_seed(5)
+        for bl, c in ((system.mappers[0].plan.blender, 1), (system.mappers[0].plan.blender_uv, 2)):
+            bl32 = dataclasses.replace(
+                bl, weight_pyrs=[[w.float() for w in p] for p in bl.weight_pyrs],
+                inv_band_weights=[v.float() for v in bl.inv_band_weights], compute_dtype="float32",
+            )
+            imgs = [torch.rand((c, h, w), generator=gen, device=cuda_device) * 255 for _, _, w, h in bl.rois]
+            canvas = (bl.align_result_roi[2], bl.align_result_roi[3])
+            assert torch.equal(blenders.multiband_blend(bl32, imgs, canvas), _stepwise_blend(bl32, imgs, canvas))
+    del system
+    monkeypatch.setattr(cuda_pyramid, "down_group", cuda_pyramid.down_group_stepwise)
+    monkeypatch.setattr(cuda_pyramid, "lap_gather", cuda_pyramid.lap_gather_stepwise)
+    plain = System(cfg, "cuda")
+    for k, (frames, (outs, gains)) in enumerate(zip(sets, got)):
+        want_outs, want_gains = plain.stitch(frames)
+        for o, wo in zip(outs, want_outs):
+            assert torch.equal(o, wo), (config, k)
+        for g, wg in zip(gains, want_gains):
+            assert (g is None and wg is None) or torch.equal(g, wg), (config, k)
 
 
 def test_pyramid_path_runs_no_matmul_on_card(cuda_device, monkeypatch):

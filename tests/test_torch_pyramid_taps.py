@@ -15,7 +15,6 @@ kernel runs:
 
 import importlib.util
 from pathlib import Path
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -118,9 +117,10 @@ def collapse_epilogue(u, d, s):
 
 
 def kernel_order_ops():
-    """The pyramid steps of ``multiband_blend`` (``ops.cuda_pyramid``'s
-    names) with the up steps run as the kernel runs them: the f32 sum of
-    the banded product, then the epilogue."""
+    """The per-step entries of ``ops.cuda_pyramid`` that the CPU path of
+    ``multiband_blend`` calls (``{name: function}``), with the up steps
+    run as the kernel runs them: the f32 sum of the banded product, then
+    the epilogue."""
     def up32(x, mats):
         return pyr_up_mm(x, mats[x.shape[-2]], mats[x.shape[-1]])
 
@@ -130,7 +130,7 @@ def kernel_order_ops():
     def up_collapse(x, d, s, mats):
         return collapse_epilogue(up32(x, mats), d, s)
 
-    return SimpleNamespace(down=cuda_pyramid.down_reference, up_laplacian=up_laplacian, up_collapse=up_collapse)
+    return {"down": cuda_pyramid.down_reference, "up_laplacian": up_laplacian, "up_collapse": up_collapse}
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -142,7 +142,8 @@ def test_epilogue_rounding_equals_eager_blend(seed, c, dtype, monkeypatch):
     plan = tb.build_multiband_plan(masks, rois, bands, CANVAS, dtype=dtype).to("cpu")
     ts = [torch.from_numpy(i) for i in imgs]
     want = tb.multiband_blend(plan, ts, CANVAS)
-    monkeypatch.setattr(tb, "cuda_pyramid", kernel_order_ops())
+    for name, fn in kernel_order_ops().items():
+        monkeypatch.setattr(cuda_pyramid, name, fn)
     got = tb.multiband_blend(plan, ts, CANVAS)
     assert torch.equal(got, want)
 
@@ -157,31 +158,39 @@ def _chip_smoke():
 @pytest.mark.parametrize("seed,c", [(0, 1), (1, 2), (5, 3)])
 def test_chip_smoke_pyramid_bound_counts_each_launch(seed, c):
     """chip_smoke.py's byte count of a blend's pyramid kernels equals the
-    bytes of the operands that ``multiband_blend`` hands each step (the
-    weight levels once for all channels), one launch per step."""
+    bytes of the operands that the card's blend hands each grouped launch
+    (every camera's levels and weight levels, the weights once for all
+    channels, each band level written once) and each collapse step."""
     smoke = _chip_smoke()
     masks, rois, imgs, bands = blend_scene(seed, c=c)
     plan = tb.build_multiband_plan(masks, rois, bands, CANVAS, dtype="bfloat16").to("cpu")
     moved = []
+    real = {name: getattr(cuda_pyramid, name) for name in ("down_group", "lap_gather", "up_collapse")}
 
-    def down(x, mats):
-        out = cuda_pyramid.down(x, mats)
+    def down_group(groups, i, x, mats):
+        out = real["down_group"](groups, i, x, mats)
         moved.append(x.numel() + out.numel())
         return out
 
-    def up_laplacian(dst, g, x, w, mats):
-        moved.append(x.numel() + g.numel() + 2 * dst.numel() + w.numel())
-        return cuda_pyramid.up_laplacian(dst, g, x, w, mats)
+    def lap_gather(groups, gauss, mats):
+        out = real["lap_gather"](groups, gauss, mats)
+        weights = sum(w.numel() for pyr in groups.weights for w in pyr)
+        moved.append(sum(g.numel() for g in gauss) + sum(g.numel() for g in gauss[1:]) + weights
+                     + sum(b.numel() for b in out))
+        return out
 
     def up_collapse(x, d, s, mats):
-        out = cuda_pyramid.up_collapse(x, d, s, mats)
+        out = real["up_collapse"](x, d, s, mats)
         moved.append(x.numel() + d.numel() + s.numel() + out.numel())
         return out
 
-    with smoke._pyramid_ops(down=down, up_laplacian=up_laplacian, up_collapse=up_collapse):
-        tb.multiband_blend(plan, [torch.from_numpy(i) for i in imgs], CANVAS)
+    ts = [torch.from_numpy(i) for i in imgs]
+    with smoke._pyramid_ops(down_group=down_group, lap_gather=lap_gather, up_collapse=up_collapse):
+        got = tb.multiband_blend(plan, ts, CANVAS)
     assert tb.cuda_pyramid is cuda_pyramid
-    assert len(moved) == 2 * len(imgs) * bands + bands
+    assert all(getattr(cuda_pyramid, name) is fn for name, fn in real.items())
+    assert torch.equal(got, tb.multiband_blend(plan, ts, CANVAS))
+    assert len(moved) == 2 * bands + 1
     assert smoke._pyramid_bytes(plan, c, 2) == 2 * sum(moved)
 
 
@@ -189,7 +198,8 @@ def test_chip_smoke_pyramid_bound_counts_each_launch(seed, c):
 def test_chip_smoke_pyramid_checks(dtype):
     """chip_smoke.py's per-launch checks of the pyramid kernels, run
     here over the plain versions (which they hold to themselves): every
-    step of a blend checked, none off; and its rounding check refuses a
+    camera's grouped down step through its per-step down, and every up
+    step of a blend, checked, none off; and its rounding check refuses a
     store two bf16 ulps off its f32 sum, or an f32 store 1e-3 off."""
     smoke = _chip_smoke()
     masks, rois, imgs, bands = blend_scene(1, c=2)
